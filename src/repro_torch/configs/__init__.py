@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-A copy of ``repro.configs`` restricted to the architectures the port can
-build so far; the other arch files arrive with the slices that port their
+A copy of ``repro.configs`` restricted to the architectures whose layer
+kinds the port builds so far: dense attention (qwen2-0.5b) and Mamba2 SSD
+(mamba2-370m). The other arch files arrive with the slices that port their
 layer kinds (see ROADMAP.md, Queue A). ``reduced_config`` shrinks a config
 to a CPU-runnable smoke-test size while preserving the layer pattern.
 """
@@ -16,6 +17,7 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, shape_app
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 
@@ -25,8 +27,8 @@ def list_archs() -> List[str]:
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"ported: {list(_MODULES)}")
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: "
+                       f"{list(_MODULES)} (dense attention and Mamba2 SSD layers)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -1,94 +1,48 @@
-"""Build, bind and launch the hand-written flash-attention kernel.
+"""Bind and launch the hand-written flash-attention kernel.
 
 The kernel is CUDA C++ for Hopper (``csrc/flash_attention.cu``), replacing
-the Pallas TPU kernel ``repro.kernels.flash_attention``. It is compiled
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface under ``build/`` at the root of the checkout, on first use, and
-loaded with ``ctypes``. A library is named by the hash of its source, so an
-edited source is never served by a stale build.
+the Pallas TPU kernel ``repro.kernels.flash_attention``. ``LIBRARY.load()``
+compiles it with ``nvcc`` for ``sm_90a`` on first use
+(``repro_torch.kernels.build``).
 
 Nothing here falls back: a failed build, an input the kernel does not take
-or a failed launch raises. ``launches`` counts the kernel launches of this
+or a failed launch raises. The kernel has no backward, so an input that
+autograd tracks is refused too (train through
+``set_attention_impl("plain")``). ``launches`` counts the kernel launches of this
 process (callers reset it to 0 to count a run).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+from repro_torch.kernels.build import CudaLibrary
+
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = 0
-build_log = ""  # nvcc's output of the build this process made (ptxas resource use)
-_lib = None
-_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin, "
-                       "default /usr/local/cuda/bin); the flash-attention kernel "
-                       "is built from source on first use")
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_forward.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_forward.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attention-{digest}.so"
-
-
-def build() -> ctypes.CDLL:
-    """Compile the kernel if this source has no library yet, then load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        out = library_path()
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-            os.close(fd)
-            try:
-                res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                                     capture_output=True, text=True, timeout=900)
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed building {SOURCE}:\n"
-                                       f"{res.stdout}{res.stderr}")
-                build_log = res.stdout + res.stderr
-                os.replace(tmp, out)  # atomic: a concurrent process never sees half a file
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(out))
-        lib.flash_attention_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_forward.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+LIBRARY = CudaLibrary("flash_attention.cu", _bind)
 
 
 def _check(q, k, v):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash-attention kernel has no backward; for gradients run "
+                           "attention plain with "
+                           "repro_torch.models.attention.set_attention_impl('plain')")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape}, {k.shape}, {v.shape}")
     bh, sq, d = q.shape
@@ -113,7 +67,7 @@ def flash_attention_bhsd(q, k, v, causal: bool = True):
     """q (BH, Sq, d), k/v (BH, Sk, d) on the card -> (BH, Sq, d) in q's dtype."""
     global launches
     _check(q, k, v)
-    lib = build()
+    lib = LIBRARY.load()
     bh, sq, d = q.shape
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -27,3 +28,20 @@ def flash_attention(q, k, v, causal: bool = True):
     else:
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     return o.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def ssd_scan(xb, dt, a_neg, bmat, cmat, chunk: int):
+    """Model layout: xb (B,L,H,P), dt (B,L,H), bmat/cmat (B,L,N).
+
+    Returns (y (B,L,H,P), final_state (B,H,N,P) fp32) matching
+    ``repro_torch.models.ssm.ssd_chunked_ref``. The kernel reads this layout
+    and writes the final state itself, so no layout copy and no second pass
+    is made (the reference transposes to (B,H,L,P) and rebuilds the state).
+    """
+    if xb.is_cuda:
+        return ssd.ssd_scan_blhp(xb.contiguous(), dt.contiguous(), a_neg.contiguous(),
+                                 bmat.contiguous(), cmat.contiguous(), chunk)
+    if xb.device.type == "cpu":
+        from repro_torch.models.ssm import ssd_chunked_ref
+        return ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk)
+    raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {xb.device}")

@@ -23,3 +23,14 @@ def attention_ref(q, k, v, causal: bool = True):
         s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(xb, dt, a_neg, bmat, cmat, chunk: int):
+    """Same contract as the reference's ``kernels.ssd_scan.ssd_scan_bhlp``:
+    xb (B,H,L,P), dt (B,H,L), bmat/cmat (B,L,N) -> y (B,H,L,P).
+
+    Port of ``repro.kernels.ref.ssd_scan_ref``, through ``ssd_chunked_ref``.
+    """
+    from repro_torch.models.ssm import ssd_chunked_ref
+    y, _ = ssd_chunked_ref(xb.transpose(1, 2), dt.transpose(1, 2), a_neg, bmat, cmat, chunk)
+    return y.transpose(1, 2)

@@ -11,8 +11,10 @@ the reference's tree), so the entry points take no ``params`` argument:
   ``prefill(batch)``                    last-token logits + decode cache
   ``decode_step(cache, tokens, pos)``   one-token serving step
 
-Only dense attention layers, ``("attn", "dense")``, are ported so far; the
-decode cache is a list with one ``{"k", "v"}`` dict per layer.
+The layer kinds ported so far are dense attention, ``("attn", "dense")``,
+and Mamba2 SSD, ``("ssm", "none")``; any other kind raises. The decode
+cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
+``{"state", "conv_x", "conv_b", "conv_c"}`` for SSD (the state in fp32).
 """
 
 from __future__ import annotations
@@ -25,18 +27,18 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.module import (Tree, count_params, init_params, stack_specs,
                                        unstack_layers)
 
-# Layer kinds the port cannot build yet, and the ROADMAP Queue A item that
-# ports each of them.
+# Mixer and MLP kinds of the layer kinds the port cannot build yet, and the
+# ROADMAP Queue A item that ports each of them. Any other combination (an
+# SSM layer with a dense MLP, as in jamba) is left to item 6.
 _UNPORTED = {
-    "ssm": "Queue A item 4 (models/ssm.py)",
     "moe": "Queue A item 5 (models/moe.py)",
     "moe_dense": "Queue A item 5 (models/moe.py)",
     "cross": "Queue A item 6 (VLM cross-attention in models/stack.py)",
     "attn_cross": "Queue A item 6 (encoder-decoder in models/stack.py)",
-    "none": "Queue A item 4 (models/ssm.py)",
 }
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -56,21 +58,37 @@ def _empty(spec_tree: Tree, dtype: torch.dtype, device) -> nn.ParameterDict:
                         for k, ps in spec_tree.items()})
 
 
-class DenseAttnLayer(nn.Module):
-    """One ``("attn", "dense")`` decoder layer: pre-norm attention + SwiGLU."""
+class _Layer(nn.Module):
+    """One decoder layer of kind ``KIND``, holding the parameters of its spec.
+
+    ``forward`` returns the new residual stream and the layer's entry of the
+    decode cache; ``decode`` takes and returns that entry; ``cache_spec``
+    gives the entry's {name: (shape, dtype)}.
+    """
+
+    KIND: tuple
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.cfg = cfg
-        for name, sub in StackModel.layer_spec(cfg).items():
+        for name, sub in StackModel.layer_spec(cfg, self.KIND).items():
             setattr(self, name, _empty(sub, dtype, device))
 
+
+class DenseAttnLayer(_Layer):
+    """One ``("attn", "dense")`` decoder layer: pre-norm attention + SwiGLU."""
+
+    KIND = ("attn", "dense")
+
     def forward(self, x, positions):
-        y, kv = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
-                                     positions)
+        y, (k, v) = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                         positions)
         x = x + y
         x = x + L.apply_mlp(self.mlp, L.apply_norm(self.norm2, x))
-        return x, kv
+        return x, {"k": k, "v": v}
+
+    def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
+        return {k: (shp, dtype) for k, shp in attn.kv_cache_shape(self.cfg, batch, seq).items()}
 
     def decode(self, x, cache, pos):
         y, cache = attn.decode_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
@@ -80,13 +98,37 @@ class DenseAttnLayer(nn.Module):
         return x, cache
 
 
+class SSMLayer(_Layer):
+    """One ``("ssm", "none")`` Mamba2 layer: pre-norm SSD mixer, no MLP."""
+
+    KIND = ("ssm", "none")
+
+    def forward(self, x, positions):
+        y, cache = ssm_lib.apply_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                     return_cache=True)
+        return x + y, cache
+
+    def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
+        # no sequence axis; the state stays fp32
+        return {k: (shp, torch.float32 if k == "state" else dtype)
+                for k, shp in ssm_lib.ssm_cache_shape(self.cfg, batch).items()}
+
+    def decode(self, x, cache, pos):
+        y, cache = ssm_lib.decode_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x), cache)
+        return x + y, cache
+
+
+_LAYERS = {cls.KIND: cls for cls in (DenseAttnLayer, SSMLayer)}
+
+
 class StackModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         for kind in cfg.pattern():
-            if kind != ("attn", "dense"):
+            if kind not in _LAYERS:
                 mixer, mlp = kind
-                todo = _UNPORTED.get(mixer if mixer != "attn" else mlp, "a later slice")
+                todo = _UNPORTED.get(mlp) or _UNPORTED.get(mixer) or \
+                    "Queue A item 6 (the other layer kinds in models/stack.py)"
                 raise NotImplementedError(
                     f"{cfg.name}: layer kind {kind} is not ported to PyTorch yet; "
                     f"ROADMAP {todo} ports it")
@@ -95,22 +137,29 @@ class StackModel(nn.Module):
         self.pattern = cfg.pattern()
         spec_tree = self.param_spec()
         self.embed = _empty(spec_tree["embed"], self.dtype, device)
-        self.layers = nn.ModuleList(DenseAttnLayer(cfg, self.dtype, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_LAYERS[self.pattern[i % cfg.period]](cfg, self.dtype, device)
+                                    for i in range(cfg.num_layers))
         self.final_norm = _empty(spec_tree["final_norm"], self.dtype, device)
 
     # ------------------------------------------------------------------
     # Parameter specs
     # ------------------------------------------------------------------
     @staticmethod
-    def layer_spec(cfg: ModelConfig) -> Tree:
-        return {"norm1": L.norm_spec(cfg), "mixer": attn.attn_spec(cfg),
-                "norm2": L.norm_spec(cfg), "mlp": L.mlp_spec(cfg)}
+    def layer_spec(cfg: ModelConfig, kind: tuple) -> Tree:
+        """The reference's parameter tree of one layer of ``kind``."""
+        mixer, mlp = kind
+        p = {"norm1": L.norm_spec(cfg)}
+        p["mixer"] = ssm_lib.ssm_spec(cfg) if mixer == "ssm" else attn.attn_spec(cfg)
+        if mlp != "none":
+            p["norm2"] = L.norm_spec(cfg)
+            p["mlp"] = L.mlp_spec(cfg)
+        return p
 
     @staticmethod
     def param_spec_of(cfg: ModelConfig) -> Tree:
         """The reference's spec tree: layer parameters stacked over periods."""
-        layer_specs = {f"L{i}": StackModel.layer_spec(cfg) for i in range(cfg.period)}
+        layer_specs = {f"L{i}": StackModel.layer_spec(cfg, kind)
+                       for i, kind in enumerate(cfg.pattern())}
         return {
             "embed": L.embed_spec(cfg),
             "layers": stack_specs(layer_specs, cfg.num_periods, None),
@@ -121,7 +170,7 @@ class StackModel(nn.Module):
         return self.param_spec_of(self.cfg)
 
     def param_count(self, active_only: bool = False) -> int:
-        # Dense layers only: every parameter is active.
+        # No MoE layer is ported yet: every parameter is active.
         return count_params(self.param_spec())
 
     @property
@@ -164,10 +213,8 @@ class StackModel(nn.Module):
     # Serving: prefill + decode (inference only, so no autograd)
     # ------------------------------------------------------------------
     def cache_spec(self, batch: int, seq: int) -> List[Dict[str, tuple]]:
-        """Per layer: {"k"/"v": (shape, dtype)} of the decode cache."""
-        kvs = attn.kv_cache_shape(self.cfg, batch, seq)
-        return [{k: (shp, self.dtype) for k, shp in kvs.items()}
-                for _ in range(self.cfg.num_layers)]
+        """Per layer: {name: (shape, dtype)} of the decode cache."""
+        return [layer.cache_spec(batch, seq, self.dtype) for layer in self.layers]
 
     def init_cache(self, batch: int, seq: int):
         return [{k: torch.zeros(shp, dtype=dt, device=self.device)
@@ -184,8 +231,8 @@ class StackModel(nn.Module):
         positions = self._positions(tokens.shape[1])
         cache = []
         for layer in self.layers:
-            x, (k, v) = layer(x, positions)
-            cache.append({"k": k.to(self.dtype), "v": v.to(self.dtype)})
+            x, entry = layer(x, positions)
+            cache.append(entry)
         x = L.apply_norm(self.final_norm, x[:, -1:])
         return L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size), cache
 

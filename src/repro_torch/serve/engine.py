@@ -7,8 +7,9 @@ model lives.
 As in the reference, ``prefill`` replaces the engine's ``max_seq`` cache
 with the cache the model returns, sized to the prompt; decode then writes
 at ``pos`` = prompt length, outside that cache, so generated tokens never
-enter it. Callers pad prompts by the number of steps plus one, as the
-reference's tests and example do.
+enter a KV cache. Callers pad prompts by the number of steps plus one, as
+the reference's tests and example do. An SSM layer's cache (state and conv
+window) has no sequence axis, so every generated token does enter it.
 """
 
 from __future__ import annotations

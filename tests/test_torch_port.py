@@ -33,11 +33,12 @@ def test_port_imports_and_runs_with_jax_blocked():
         from repro_torch.configs import get_config, reduced_config
         from repro_torch.models import build_model
         from repro_torch.serve.engine import DecodeEngine
-        cfg = reduced_config(get_config("qwen2-0.5b"))
-        model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-        eng = DecodeEngine(model, batch=1, max_seq=12)
-        out = eng.generate(eng.prefill({"tokens": torch.zeros(1, 12, dtype=torch.long)}), 3)
-        assert out.shape == (1, 4)
+        for arch in ("qwen2-0.5b", "mamba2-370m"):
+            cfg = reduced_config(get_config(arch))
+            model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+            eng = DecodeEngine(model, batch=1, max_seq=12)
+            out = eng.generate(eng.prefill({"tokens": torch.zeros(1, 12, dtype=torch.long)}), 3)
+            assert out.shape == (1, 4)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                         and sys.modules[m] is not None)
         assert not leaked, leaked

@@ -55,3 +55,47 @@ def test_engine_keeps_reference_cache_semantics(setup):
     assert torch.equal(again.generate(again.prefill({"tokens": torch.from_numpy(tokens)}),
                                       STEPS), out)
     assert ((out >= 0) & (out < cfg.vocab_size)).all()
+
+
+# --- reduced mamba2-370m: the SSM cache has no sequence axis ----------------
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    cfg = jax_reduced(jax_get_config("mamba2-370m"))
+    jm = jax_build(cfg)
+    params = jm.init(jax.random.key(2))
+    tokens = np.arange(B * S, dtype=np.int32).reshape(B, S) * 5 % 97
+    return cfg, jm, params, port_model(torch_cfg(cfg), params), tokens
+
+
+def test_ssm_generate_matches_jax_tokens(ssm_setup):
+    cfg, jm, params, tm, tokens = ssm_setup
+    jeng = JaxEngine(jm, params, batch=B, max_seq=S + STEPS)
+    want = np.asarray(jeng.generate(jeng.prefill({"tokens": jnp.asarray(tokens)}), STEPS))
+    eng = DecodeEngine(tm, batch=B, max_seq=S + STEPS)
+    got = eng.generate(eng.prefill({"tokens": torch.from_numpy(tokens)}), STEPS)
+    assert got.shape == (B, STEPS + 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ssm_engine_state_takes_in_generated_tokens(ssm_setup):
+    """Unlike the KV cache the engine swaps in at prefill, the SSM state
+    advances with every decoded token: the engine's greedy tokens equal
+    greedy decoding by the full forward over the growing sequence."""
+    cfg, _, _, tm, tokens = ssm_setup
+    eng = DecodeEngine(tm, batch=B, max_seq=S + STEPS)
+    first = eng.prefill({"tokens": torch.from_numpy(tokens)})
+    state = eng.cache[0]["state"].clone()
+    got = eng.generate(first, STEPS)
+    assert not torch.equal(state, eng.cache[0]["state"])
+    seq = torch.from_numpy(tokens).long()
+    want = []
+    with torch.no_grad():
+        for _ in range(STEPS + 1):
+            logits, _ = tm.forward({"tokens": seq})
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            want.append(nxt)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    assert ((got >= 0) & (got < cfg.vocab_size)).all()
