@@ -32,9 +32,26 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    kernel against the plain path, and prefill -> 3 decode steps against
    the full forward, both at 2e-3;
 7. the second main path: mamba2-370m in bf16 at full width served by
-   ``DecodeEngine``, as in phase 4.
+   ``DecodeEngine``, as in phase 4;
+8. the RMSNorm forward and backward kernels against their plain version
+   ``rmsnorm_ref`` under autograd on the card, fp32 (y and dx within 1e-5)
+   and bf16 (2e-2), dgain within 1e-4 of its largest entry: the serving
+   prefill's and decode's rows, the train steps' rows and small ragged
+   ones, with kernel, plain and ``F.rms_norm`` times and the card's bound
+   at the main path's (16384, 896) bf16;
+9. one qwen2-0.5b train step at full width in fp32 (TF32 off, remat
+   "full") through the RMSNorm kernels against one with the norm plain:
+   loss, gradient norm, every gradient and the parameters after the step;
+10. the third main path: ``profile_lm`` of qwen2-0.5b in bf16 at full width
+   at (batch, seq) = (1, 512), (4, 1024), (8, 2048), each record printed as
+   a JSON line with the kernels' launches counted around that call (a
+   warm-up and the timed steps); the NSM traced on card tensors against
+   the CPU trace; the step's time on seeded random state against zeros; a
+   device profile of one step; and one mamba2-370m record.
 
-Any failed check raises, so the script exits nonzero without the final
+Phases 3 and 6 run their plain side with every kernel pinned plain; phases
+4 and 7 count the RMSNorm kernel too (one launch a norm, each prefill and
+each decode step). Any failed check raises, so the script exits nonzero without the final
 line; so it does without a card, or away from the repository's sources.
 The last lines are a JSON object of kernel results, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -71,9 +88,29 @@ SSD_MAIN = (8, 2081, 32, 64, 128, 256)  # mamba2-370m serving prefill: 32 heads,
 SSD_SLOW = (SSD_MAIN,)
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # y; the fp32 final state holds to 2e-4
 
+# (rows, d_model) of the RMSNorm kernels: serving prefill (8 x 2081 rows) and
+# decode (8) for qwen2 (896) and mamba2 (1024), the train steps of phase 10
+# (512, 4096 and 16384 rows; 8192 for 8 x 1024) and small ragged rows
+RMS_SHAPES = [(16648, 896), (16648, 1024), (8, 896), (8, 1024), (512, 896), (4096, 896),
+              (8192, 896), (16384, 896), (1, 64), (7, 896), (300, 1024)]
+RMS_MAIN = (16384, 896)  # the main path's rows: qwen2-0.5b train step at (8, 2048)
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # y and dx; dgain within 1e-4 of max |dgain|
+DGAIN_TOL = 1e-4
+
+# phase 9: one fp32 train step, kernel vs plain, at the CPU parity test's
+# tolerances (tests/test_torch_train.py)
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, TRAIN_LR = 2, 256, 1e-3
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
+# phase 10: the profiled points (batch, seq), the last the main one
+PROFILE_POINTS = [(1, 512), (4, 1024), (8, 2048)]
+PROFILE_STEPS = 3
+QWEN_PARAMS = 494_147_456  # the reference's count for qwen2-0.5b
+MAMBA_POINT = (2, 512)
+
 SERVE_BATCH, PROMPT, STEPS = 8, 2048, 32
 MODEL_CHECK_BATCH, MODEL_CHECK_SEQ = 2, 300  # ragged against the kernels' 32- and 64-row tiles
 DEVICE = "cuda"
+SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
 
 
 def check(ok: bool, msg: str) -> None:
@@ -89,11 +126,16 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``, by CUDA events around ``reps`` calls.
+    The calls are queued behind a 10 ms spin of the card, so they run back to
+    back and the host's time between launches, which for a call on a few MB
+    exceeds the kernels' own, is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -152,19 +194,16 @@ def kernel_phase(torch, F, fa, attention_ref):
     return main
 
 
-def model_check_phase(torch, label, cfg_full, build_model, set_impl, steps):
-    print(f"== {label}: {cfg_full.name} full width, fp32 (TF32 off): kernel vs plain, "
+def model_check_phase(torch, label, cfg_full, build_model, all_plain, steps):
+    print(f"== {label}: {cfg_full.name} full width, fp32 (TF32 off): kernels vs plain, "
           f"prefill -> {steps} decode steps")
     cfg = dataclasses.replace(cfg_full, dtype="float32")
     model = build_model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
     b, s = MODEL_CHECK_BATCH, MODEL_CHECK_SEQ
     tokens = (torch.arange(b * s, device=DEVICE).reshape(b, s) * 7) % (cfg.vocab_size - 1)
     with torch.no_grad():
-        set_impl("plain")
-        try:
+        with all_plain():
             plain, _ = model.prefill({"tokens": tokens})
-        finally:
-            set_impl(None)
         kern, cache = model.prefill({"tokens": tokens})
         err = (kern - plain).abs().max().item()
         vocab_rows = -(-cfg.vocab_size // 256) * 256
@@ -192,11 +231,21 @@ def model_check_phase(torch, label, cfg_full, build_model, set_impl, steps):
     torch.cuda.empty_cache()
 
 
-def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect):
+def reset_counts(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect, expect_decode):
     """Serve ``cfg`` in bf16 through ``DecodeEngine`` twice; ``counters`` maps a
-    kernel's name to its wrapper module, whose ``launches`` are set to 0 just
-    before each run and read just after; ``expect`` gives each kernel's
-    launches per prefill. Returns the launch counts of the first run."""
+    kernel's name to its wrapper module and counter, set to 0 just before the
+    prefill and read just after it and after the decode steps; ``expect`` and
+    ``expect_decode`` give each kernel's launches per prefill and over the
+    decode steps. Returns the launch counts of the first run's prefill."""
     print(f"== {label} (main path): {cfg.name} bf16 full width through DecodeEngine")
     model = build_model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
     total = PROMPT + STEPS + 1
@@ -207,16 +256,20 @@ def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect):
     def serve_once():
         engine = DecodeEngine(model, batch=SERVE_BATCH, max_seq=total)
         torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         first = engine.prefill({"tokens": prompts})
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        launches = {name: mod.launches for name, mod in counters.items()}
+        launches = read_counts(counters)
+        reset_counts(counters)
         out = engine.generate(first, STEPS)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        decode = read_counts(counters)
+        check(decode == expect_decode, f"kernel launches over {STEPS} decode steps {decode}, "
+                                       f"want {expect_decode}")
+        print(f"kernel launches over the {STEPS} decode steps: {decode}")
         return out, launches, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / STEPS, engine
 
     runs, engine = [], None
@@ -311,6 +364,236 @@ def ssd_phase(torch, ssd, ssd_chunked_ref):
     return main
 
 
+def rms_bound_ms(r: int, d: int, dtype_bytes: int, backward: bool):
+    """Least time for the work: the forward reads x and gain and writes y
+    (2 R D elements + 4 D bytes), about 4 FLOP an element; the backward reads
+    x, dy and gain and writes dx and dgain (3 R D elements + 8 D bytes),
+    about 8 FLOP an element, all at the fp32 rate."""
+    nbytes = (3.0 if backward else 2.0) * r * d * dtype_bytes + (8.0 if backward else 4.0) * d
+    flops = (8.0 if backward else 4.0) * r * d
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rmsnorm_phase(torch, F, rn, rmsnorm_ref):
+    print("== phase 8: RMSNorm forward and backward kernels vs plain on the card")
+    main = {}
+    for (r, d) in RMS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            tol = RMS_TOL[name]
+            gen = torch.Generator(device=DEVICE).manual_seed(r * 7 + d)
+            x = torch.randn((r, d), generator=gen, device=DEVICE).to(dtype)
+            g = 1 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)
+            dy = torch.randn((r, d), generator=gen, device=DEVICE).to(dtype)
+            y, rstd = rn.rmsnorm_fwd(x, g)
+            dx, dgain = rn.rmsnorm_bwd(x, g, rstd, dy)
+            xr, gr = x.float().requires_grad_(True), g.clone().requires_grad_(True)
+            want = rmsnorm_ref(xr, gr)
+            want_dx, want_dg = torch.autograd.grad(want, (xr, gr), dy.float())
+            torch.cuda.synchronize()
+            errs = {}
+            for what, got, ref in (("y", y, want.detach().to(dtype)),
+                                   ("dx", dx, want_dx.to(dtype))):
+                diff = (got.float() - ref.float()).abs()
+                errs[what] = diff.max().item()
+                excess = (diff - (tol + tol * ref.float().abs())).max().item()
+                check(excess <= 0, f"rmsnorm {what} {(r, d)} {name}: max abs err {errs[what]} "
+                                   f"over tol {tol}")
+            scale = want_dg.abs().max().item()
+            errs["dgain"] = (dgain - want_dg).abs().max().item()
+            check(errs["dgain"] <= DGAIN_TOL * scale,
+                  f"rmsnorm dgain {(r, d)} {name}: max abs err {errs['dgain']} over "
+                  f"{DGAIN_TOL} x {scale}")
+            del xr, gr, want, want_dx, want_dg
+            print(f"rmsnorm (r,d)={r, d} {name}: y max_abs_err={errs['y']:.3e} (tol {tol}) "
+                  f"dx max_abs_err={errs['dx']:.3e} (tol {tol}) dgain max_abs_err="
+                  f"{errs['dgain']:.3e} (tol {DGAIN_TOL} x {scale:.3e})")
+            if (r, d) == RMS_MAIN and dtype == torch.bfloat16:
+                main = rmsnorm_times(torch, F, rn, rmsnorm_ref, x, g, dy, rstd, errs)
+            del x, g, dy, y, rstd, dx, dgain
+    torch.cuda.empty_cache()
+    return main
+
+
+def rmsnorm_times(torch, F, rn, rmsnorm_ref, x, g, dy, rstd, errs) -> dict:
+    """Kernel, plain and ``F.rms_norm`` times, forward and backward, at the
+    main shape, with the card's bound: the two kernels' entries of the
+    ``kernels`` line."""
+    r, d = x.shape
+    xq, gq = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    yq = rmsnorm_ref(xq, gq)
+    gl = g.to(x.dtype)  # F.rms_norm takes its weight in x's dtype
+    xl, glr = x.clone().requires_grad_(True), gl.clone().requires_grad_(True)
+    yl = F.rms_norm(xl, (d,), glr, 1e-6)
+    calls = {  # (forward, backward) of the kernels, the plain version, F.rms_norm
+        "kernel": (lambda: rn.rmsnorm_fwd(x, g), lambda: rn.rmsnorm_bwd(x, g, rstd, dy)),
+        "plain": (lambda: rmsnorm_ref(x, g),
+                  lambda: torch.autograd.grad(yq, (xq, gq), dy, retain_graph=True)),
+        "rms_norm": (lambda: F.rms_norm(x, (d,), gl, 1e-6),
+                     lambda: torch.autograd.grad(yl, (xl, glr), dy, retain_graph=True)),
+    }
+    ms = {k: [time_ms(torch, f) for f in fs] for k, fs in calls.items()}
+    bounds = [rms_bound_ms(r, d, x.element_size(), backward=bw) for bw in (False, True)]
+    main = {}
+    for i, (kname, err) in enumerate((("rmsnorm_fwd", errs["y"]), ("rmsnorm_bwd", errs["dx"]))):
+        print(f"  {kname} at {(r, d)} {str(x.dtype).replace('torch.', '')}: "
+              f"ms={ms['kernel'][i]:.4f} plain_ms={ms['plain'][i]:.4f} "
+              f"rms_norm_ms={ms['rms_norm'][i]:.4f} bound_ms={bounds[i][0]:.4f} "
+              f"({bounds[i][1]})")
+        main[kname] = dict(max_abs_err=err, ms=ms["kernel"][i], plain_ms=ms["plain"][i],
+                           bound_ms=bounds[i][0], bound_by=bounds[i][1],
+                           library_ms=ms["rms_norm"][i])
+    return main
+
+
+def adam_param_excess(torch, got, want, g_a, g_b, clip_a, clip_b, lr: float,
+                      eps: float) -> float:
+    """How far two parameters after one AdamW step (count 1) differ beyond
+    1e-6 plus what their gradients' difference allows. The step moves a
+    parameter by lr * u(g c) plus the same weight decay, with c the clip
+    factor and u(g) = g / (|g| + eps), whose slope eps / (|g| + eps)^2 is
+    largest at the smaller |g| of the two; where the two gradients differ
+    in sign, u may differ by its whole range, 2."""
+    a, b = g_a.float() * clip_a, g_b.float() * clip_b
+    slope = eps / (torch.minimum(a.abs(), b.abs()) + eps) ** 2
+    allowed = 1e-6 + lr * torch.where(a * b >= 0, (a - b).abs() * slope, 2.0)
+    return ((got.float() - want.float()).abs() - allowed).max().item()
+
+
+def train_check_phase(torch, cfg_full, build_model, use_impls, topt, tstep, counters):
+    print(f"== phase 9: {cfg_full.name} full width, fp32 (TF32 off, remat full): one train "
+          f"step through the RMSNorm kernels vs plain")
+    cfg = dataclasses.replace(cfg_full, dtype="float32", remat="full")
+    model = build_model(cfg, device=DEVICE)
+    opt = topt.OptConfig(lr=TRAIN_LR, warmup_steps=1)
+    state = tstep.init_state(model, opt, torch.Generator(device=DEVICE).manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    b, s = TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEVICE)
+             for k in ("tokens", "labels")}
+    step = tstep.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    new_k, m_k = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    with use_impls(norm="plain"):
+        new_p, m_p = step(state, batch)
+        _, _, g_p = step.compute_grads(state["params"], batch)
+    _, _, g_k = step.compute_grads(state["params"], batch)
+    want = step_launches(cfg)
+    print(f"kernel launches in the step: {launches}")
+    check(launches == want, f"train step launches {launches}, want {want}")
+    for key in ("loss", "grad_norm"):
+        err = abs(m_k[key].item() - m_p[key].item())
+        check(err <= LOSS_TOL * (1 + abs(m_p[key].item())), f"{key} kernel {m_k[key].item()} "
+                                                            f"vs plain {m_p[key].item()}")
+        print(f"{key}: kernel {m_k[key].item():.7f} plain {m_p[key].item():.7f} "
+              f"abs_err={err:.3e} (tol {LOSS_TOL})")
+    check(bool(torch.isfinite(m_k["loss"])), "non-finite loss")
+    grad_rel = max(((g_k[k].float() - g_p[k].float()).abs().max()
+                    / g_p[k].float().abs().max().clamp(min=1e-30)).item() for k in g_p)
+    check(grad_rel <= GRAD_TOL, f"gradients kernel vs plain: {grad_rel} of a leaf's max")
+    clip_k, clip_p = (min(1.0, opt.grad_clip / (m["grad_norm"].item() + 1e-9))
+                      for m in (m_k, m_p))
+    excess = max(adam_param_excess(torch, new_k["params"][k], new_p["params"][k], g_k[k], g_p[k],
+                                   clip_k, clip_p, opt.lr, opt.eps) for k in g_p)
+    check(excess <= 0, f"parameters after the step differ by {excess} beyond the tolerance")
+    pmax = max((new_k["params"][k].float() - new_p["params"][k].float()).abs().max().item()
+               for k in g_p)
+    print(f"gradients: max abs err {grad_rel:.3e} of each leaf's max (tol {GRAD_TOL}); "
+          f"parameters after the step: max abs err {pmax:.3e} (tol 1e-6 + lr x |d(g c)| x "
+          f"eps / (min |g c| + eps)^2, or 2 lr where the signs differ; lr {opt.lr}, eps "
+          f"{opt.eps}, clip c {clip_k:.6f} / {clip_p:.6f}); over {len(g_p)} tensors")
+    del model, state, new_k, new_p, g_k, g_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step of ``cfg``: every RMSNorm
+    forward (one before a layer's mixer, one before its MLP where it has
+    one, and the final norm), again in the remat recompute of each layer,
+    and backward; attention and the SSD scan run plain in training."""
+    norms = sum(1 + (cfg.layer_kind(i)[1] != "none") for i in range(cfg.num_layers)) + 1
+    recompute = norms - 1 if cfg.remat == "full" else 0
+    return {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms + recompute,
+            "rmsnorm_bwd": norms}
+
+
+def profile_record(torch, tprof, cfg, b: int, s: int, counters):
+    """``profile_lm`` on the card at (b, s), checked and printed as one JSON
+    line, with the kernels' launches counted over exactly that call: one
+    warm-up and ``PROFILE_STEPS`` timed steps, each the launches of one step
+    (the trace for FLOPs and the NSM runs every kernel plain)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    rec = tprof.profile_lm(cfg, b, s, steps=PROFILE_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check(rec.time_s > 0 and rec.mem_bytes > 0 and rec.flops > 0 and rec.nsm_edges,
+          f"{cfg.name} record at {(b, s)} has a zero measurement or an empty NSM")
+    per_step = step_launches(cfg)
+    want = {k: (PROFILE_STEPS + 1) * n for k, n in per_step.items()}
+    check(launches == want, f"{cfg.name} profile_lm at {(b, s)}: kernel launches {launches}, "
+                            f"want {want} ({PROFILE_STEPS + 1} steps of {per_step})")
+    print(json.dumps(dict(model=rec.model_name, batch=b, seq=s, time_s=rec.time_s,
+                          mem_bytes=rec.mem_bytes, flops=rec.flops, params=rec.params,
+                          nsm_pairs=len(rec.nsm_edges), nsm_edges=sum(rec.nsm_edges.values()),
+                          platform=rec.platform, launches=launches,
+                          wall_s=time.perf_counter() - t0)))
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def profile_phase(torch, cfg_full, mamba_full, build_model, tprof, tstep, topt, counters):
+    """The profiled train step at full width: the records with the kernels'
+    launches of each ``profile_lm`` call, their NSM against a CPU trace,
+    zeros against random state, where the step's device time goes, and one
+    mamba2 record. Returns the launches of the main point's call."""
+    print(f"== phase 10 (main path): profile_lm, {cfg_full.name} bf16 full width")
+    cfg = dataclasses.replace(cfg_full, dtype="bfloat16")
+    runs = [profile_record(torch, tprof, cfg, b, s, counters) for (b, s) in PROFILE_POINTS]
+    records = [rec for rec, _ in runs]
+    check(all(rec.params == QWEN_PARAMS for rec in records),
+          f"params {[rec.params for rec in records]}, want {QWEN_PARAMS}")
+    per_step = step_launches(cfg)
+    print(f"kernel launches per train step: {per_step} ({per_step['rmsnorm_bwd']} norms forward, "
+          f"{per_step['rmsnorm_fwd'] - per_step['rmsnorm_bwd']} again in the remat recompute, "
+          f"{per_step['rmsnorm_bwd']} backward), {PROFILE_STEPS + 1} steps a profile_lm call")
+    b0, s0 = PROFILE_POINTS[0]
+    _, step0, specs0, batch0 = tprof.lm_trace(cfg, b0, s0)
+    cpu_edges = tprof.trace_step(step0, (specs0, batch0), device="cpu")["nsm_edges"]
+    check(cpu_edges == records[0].nsm_edges, "NSM traced on card tensors differs from the CPU's")
+    print(f"NSM at {(b0, s0)} traced on card tensors equals the CPU trace "
+          f"({len(cpu_edges)} pairs, {sum(cpu_edges.values()):.0f} edges)")
+
+    # the same step on seeded random weights and tokens (the records time zeros)
+    b, s = PROFILE_POINTS[-1]
+    _, step, specs, bspec = tprof.lm_trace(cfg, b, s)
+    zeros = tprof.zeros_like_specs((specs, bspec), DEVICE)
+    opt = topt.OptConfig(lr=1e-3, keep_master=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    real = tstep.init_state(build_model(cfg, device=DEVICE), opt, gen)
+    rand_batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEVICE,
+                                   dtype=torch.int32) for k in ("tokens", "labels")}
+    z = tprof.time_step(step, zeros, PROFILE_STEPS)
+    r = tprof.time_step(step, (real, rand_batch), PROFILE_STEPS)
+    print(f"train step at {(b, s)}: zeros {z['time_s'] * 1e3:.3f} ms, seeded random state "
+          f"{r['time_s'] * 1e3:.3f} ms (random / zeros {r['time_s'] / z['time_s']:.4f}); "
+          f"peak {z['mem_bytes']:.0f} / {r['mem_bytes']:.0f} B")
+    profile_device(torch, f"train step {(b, s)}", lambda: step(real, rand_batch),
+                   wall_ms=r["time_s"] * 1e3)
+    del zeros, real, rand_batch
+    torch.cuda.empty_cache()
+
+    profile_record(torch, tprof, dataclasses.replace(mamba_full, dtype="bfloat16"),
+                   *MAMBA_POINT, counters)
+    return runs[-1][1]
+
+
 def profile_device(torch, label: str, fn, wall_ms: float, reps: int = 1):
     """Where the device time of ``fn`` goes: kernels by name, and the aten ops
     that launched them, against a wall time measured unprofiled
@@ -345,13 +628,17 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.core import profiler as tprof
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
     from repro_torch.models import build_model
-    from repro_torch.models.attention import set_attention_impl
-    from repro_torch.models.ssm import set_ssd_impl, ssd_chunked_ref
+    from repro_torch.models.api import use_impls
+    from repro_torch.models.ssm import ssd_chunked_ref
     from repro_torch.serve.engine import DecodeEngine
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
 
     # fp32 stays fp32: no TF32 in matrix products or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,7 +648,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels = {"flash_attention": fa, "ssd_scan": ssd}
+    kernels = {"flash_attention": fa, "ssd_scan": ssd, "rmsnorm": rn}
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
         for fut in [pool.submit(mod.LIBRARY.load) for mod in kernels.values()]:
             fut.result()
@@ -371,21 +658,43 @@ def main() -> int:
         for line in mod.LIBRARY.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+    # each kernel's launch counter: its wrapper module and the counter's name
+    counters = {"flash_attention": (fa, "launches"), "ssd_scan": (ssd, "launches"),
+                "rmsnorm_fwd": (rn, "fwd_launches"), "rmsnorm_bwd": (rn, "bwd_launches")}
+
+    def all_plain():
+        return use_impls(attention="plain", ssd="plain", norm="plain")
 
     flash_main = kernel_phase(torch, F, fa, attention_ref)
     check(flash_main is not None, "main-path flash-attention shape was not run")
     qwen = get_config("qwen2-0.5b")
-    model_check_phase(torch, "phase 3", qwen, build_model, set_attention_impl, steps=1)
-    qwen_launches = serve_phase(torch, "phase 4", qwen, build_model, DecodeEngine, kernels,
-                                {"flash_attention": qwen.num_layers, "ssd_scan": 0})
+    norms = 2 * qwen.num_layers + 1  # two a layer and the final norm
+    model_check_phase(torch, "phase 3", qwen, build_model, all_plain, steps=1)
+    qwen_launches = serve_phase(
+        torch, "phase 4", qwen, build_model, DecodeEngine, counters,
+        {"flash_attention": qwen.num_layers, "ssd_scan": 0, "rmsnorm_fwd": norms,
+         "rmsnorm_bwd": 0},
+        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * STEPS, "rmsnorm_bwd": 0})
 
     ssd_main = ssd_phase(torch, ssd, ssd_chunked_ref)
     check(ssd_main is not None, "main-path SSD shape was not run")
     mamba = get_config("mamba2-370m")
-    model_check_phase(torch, "phase 6", mamba, build_model, set_ssd_impl, steps=3)
-    mamba_launches = serve_phase(torch, "phase 7", mamba, build_model, DecodeEngine, kernels,
-                                 {"flash_attention": 0, "ssd_scan": mamba.num_layers})
+    model_check_phase(torch, "phase 6", mamba, build_model, all_plain, steps=3)
+    mamba_norms = mamba.num_layers + 1  # one a layer and the final norm
+    mamba_launches = serve_phase(
+        torch, "phase 7", mamba, build_model, DecodeEngine, counters,
+        {"flash_attention": 0, "ssd_scan": mamba.num_layers, "rmsnorm_fwd": mamba_norms,
+         "rmsnorm_bwd": 0},
+        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": mamba_norms * STEPS,
+         "rmsnorm_bwd": 0})
 
+    rms_main = rmsnorm_phase(torch, F, rn, rmsnorm_ref)
+    check(set(rms_main) == {"rmsnorm_fwd", "rmsnorm_bwd"}, "main-path RMSNorm shape was not run")
+    train_check_phase(torch, qwen, build_model, use_impls, topt, tstep, counters)
+    profile_launches = profile_phase(torch, qwen, mamba, build_model, tprof, tstep, topt,
+                                     counters)
+
+    rms_source = "src/repro_torch/kernels/csrc/rmsnorm.cu"
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -394,6 +703,12 @@ def main() -> int:
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:24",
              launches=mamba_launches["ssd_scan"], **ssd_main),
+        dict(name="rmsnorm_fwd", route="cuda", source=rms_source,
+             replaces="src/repro/kernels/rmsnorm.py:18",
+             launches=profile_launches["rmsnorm_fwd"], **rms_main["rmsnorm_fwd"]),
+        dict(name="rmsnorm_bwd", route="cuda", source=rms_source,
+             replaces="src/repro/kernels/rmsnorm.py:18",
+             launches=profile_launches["rmsnorm_bwd"], **rms_main["rmsnorm_bwd"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,13 +3,16 @@
 Port of ``repro.kernels.ops``: adapt model-layout tensors to kernel
 layouts. A tensor on the card goes to the hand-written kernel, which
 launches or raises; a tensor on the CPU takes the kernel's plain version.
-The kernel masks ragged lengths itself, so no block size is picked here.
+The kernels mask ragged lengths themselves, so no block size is picked here.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
 
 
@@ -45,3 +48,33 @@ def ssd_scan(xb, dt, a_neg, bmat, cmat, chunk: int):
         from repro_torch.models.ssm import ssd_chunked_ref
         return ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk)
     raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {xb.device}")
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The RMSNorm kernels as one differentiable op. The forward saves the
+    rows' rstd, so the backward kernel does not recompute it (and a remat
+    recompute launches the forward kernel once more, not twice)."""
+
+    @staticmethod
+    def forward(ctx, x2, gain, eps):
+        y, rstd = rn.rmsnorm_fwd(x2, gain, eps)
+        ctx.save_for_backward(x2, gain, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, gain, rstd = ctx.saved_tensors
+        dx, dgain = rn.rmsnorm_bwd(x2, gain, rstd, dy.contiguous())
+        return dx, dgain, None
+
+
+def rmsnorm(x, gain, eps: float = 1e-6):
+    """x (..., D) -> normalized, differentiable; flattens leading dims for the
+    row kernels. On the card the forward and backward kernels run; on the
+    CPU the plain ``rmsnorm_ref`` under autograd."""
+    if x.is_cuda:
+        shape = x.shape
+        return _RMSNorm.apply(x.reshape(-1, shape[-1]).contiguous(), gain, eps).reshape(shape)
+    if x.device.type == "cpu":
+        return ref_lib.rmsnorm_ref(x, gain, eps)
+    raise ValueError(f"rmsnorm runs on CUDA or CPU tensors, not {x.device}")

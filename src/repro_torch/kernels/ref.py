@@ -34,3 +34,11 @@ def ssd_scan_ref(xb, dt, a_neg, bmat, cmat, chunk: int):
     from repro_torch.models.ssm import ssd_chunked_ref
     y, _ = ssd_chunked_ref(xb.transpose(1, 2), dt.transpose(1, 2), a_neg, bmat, cmat, chunk)
     return y.transpose(1, 2)
+
+
+def rmsnorm_ref(x, gain, eps: float = 1e-6):
+    """x (..., D), gain (D,) -> x * rsqrt(mean(x^2) + eps) * gain in x's dtype,
+    fp32 statistics. Port of ``repro.kernels.ref.rmsnorm_ref``."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * gain.float()).to(x.dtype)

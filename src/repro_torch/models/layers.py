@@ -5,6 +5,13 @@ parameters produced from the matching ``*_spec`` (a dict or an
 ``nn.ParameterDict``). Compute runs in the activation dtype; reductions that
 need it (norm statistics, SiLU, loss) run in fp32, as in the reference.
 Weights keep the JAX layout (``x @ w``), so carrying them across is slicing.
+
+RMSNorm runs through either the plain PyTorch math (the reference's inline
+``apply_norm``) or the hand-written CUDA RMSNorm kernels, forward and
+backward (the reference's Pallas ``rmsnorm``, which no model path of the
+reference calls). By default the kernels take tensors on the card and the
+plain math tensors on the CPU; ``set_norm_impl`` pins one of them. LayerNorm
+always runs plain.
 """
 
 from __future__ import annotations
@@ -15,6 +22,32 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import spec
+
+IMPLS = ("plain", "cuda")
+_IMPL: Optional[str] = None  # None: the kernels on the card, plain on the CPU
+
+
+def set_norm_impl(impl: Optional[str]) -> None:
+    """Pin RMSNorm to ``"plain"`` or ``"cuda"``; ``None`` restores the default
+    choice by device."""
+    global _IMPL
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"norm impl {impl!r} not in {IMPLS} or None")
+    _IMPL = impl
+
+
+def get_norm_impl() -> Optional[str]:
+    return _IMPL
+
+
+def _use_kernel(x) -> bool:
+    if _IMPL == "cuda":
+        if not x.is_cuda:
+            raise ValueError("norm impl 'cuda' asked for with tensors on "
+                             f"{x.device}; the kernels run on the card only")
+        return True
+    return _IMPL is None and x.is_cuda
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -30,6 +63,9 @@ def norm_spec(cfg, d=None):
 
 
 def apply_norm(p, x, eps: float = 1e-6):
+    if "bias" not in p and _use_kernel(x):
+        from repro_torch.kernels import ops as kops
+        return kops.rmsnorm(x, p["scale"], eps)
     dt = x.dtype
     xf = x.float()
     if "bias" in p:  # LayerNorm

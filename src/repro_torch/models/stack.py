@@ -15,6 +15,11 @@ The layer kinds ported so far are dense attention, ``("attn", "dense")``,
 and Mamba2 SSD, ``("ssm", "none")``; any other kind raises. The decode
 cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
 ``{"state", "conv_x", "conv_b", "conv_c"}`` for SSD (the state in fp32).
+
+Under autograd, ``cfg.remat == "full"`` (the default) runs each period of
+layers as one ``torch.utils.checkpoint`` region, the reference's
+``jax.checkpoint`` around its scan body: only the period's input is kept,
+and its activations are recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -121,6 +127,12 @@ class SSMLayer(_Layer):
 _LAYERS = {cls.KIND: cls for cls in (DenseAttnLayer, SSMLayer)}
 
 
+def _run_period(layers, x, positions):
+    for layer in layers:
+        x, _ = layer(x, positions)
+    return x
+
+
 class StackModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -196,12 +208,26 @@ class StackModel(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         x = L.embed_tokens(self.embed, tokens, self.dtype)
-        positions = self._positions(tokens.shape[1])
-        for layer in self.layers:
-            x, _ = layer(x, positions)
+        x = self._run_stack(x, self._positions(tokens.shape[1]))
         x = L.apply_norm(self.final_norm, x)
         logits = L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size)
         return logits, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _run_stack(self, x, positions):
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
+        if remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"{self.cfg.name}: remat={remat!r} is not ported to PyTorch yet; ROADMAP "
+                "Queue A item 6 ports it (selective checkpointing of matrix products)")
+        period = self.cfg.period
+        for i in range(0, len(self.layers), period):
+            layers = self.layers[i:i + period]
+            if remat == "full":
+                x = checkpoint(_run_period, layers, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)  # the model draws no random numbers
+            else:
+                x = _run_period(layers, x, positions)
+        return x
 
     def loss(self, batch):
         logits, aux = self.forward(batch)

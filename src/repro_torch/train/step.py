@@ -1,0 +1,104 @@
+"""The functional train step.
+
+Port of ``repro.train.step``. ``make_train_step(model, opt_cfg)`` returns
+``step(state, batch) -> (new_state, metrics)`` where
+``state = {"params": {name: t}, "opt": {m, v, master, count}, "step": int32 []}``
+and the parameter names are the model's ``named_parameters`` names. The
+step is a function of its inputs: the parameters go into the model through
+``torch.func.functional_call`` and nothing is updated in place, so the same
+step is timed on the card and traced by ``make_fx`` on fake tensors
+(``repro_torch.core.profiler``).
+
+Attention and the SSD scan run plain inside the step, as the reference
+trains on its XLA path (their kernels have no backward and refuse inputs
+that autograd tracks); RMSNorm keeps its impl, so on the card its forward
+and backward kernels run. Optional gradient accumulation runs microbatches
+in a loop, the gradients averaged in fp32 (the reference scans them).
+
+The sharding functions of the reference (``state_shardings``,
+``batch_shardings``, ``metric_shardings``) come with ROADMAP Queue A item 15.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.models.api import use_impls
+from repro_torch.train import optimizer as opt_lib
+
+
+class _LossAndGrads(nn.Module):
+    """The model's loss and its gradients in one module call, so that the
+    remat recompute, which runs inside ``autograd.grad``, sees the same
+    parameters as the forward pass did."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, leaves, batch):
+        loss, metrics = self.model.loss(batch)
+        return loss, metrics, torch.autograd.grad(loss, leaves)
+
+
+def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):
+    loss_and_grads = _LossAndGrads(model)
+
+    def grad_fn(params, batch):
+        leaves = {f"model.{k}": v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad(), use_impls(attention="plain", ssd="plain"):
+            loss, metrics, grads = functional_call(loss_and_grads, leaves,
+                                                   (list(leaves.values()), batch))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                dict(zip(params, grads)))
+
+    def compute_grads(params, batch):
+        if accum <= 1:
+            return grad_fn(params, batch)
+        micro = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for k, p in params.items()}
+        for i in range(accum):
+            loss, _, grads = grad_fn(params, {k: v[i] for k, v in micro.items()})
+            acc = {k: a + grads[k].float() / accum for k, a in acc.items()}
+        return loss, {"loss": loss}, acc  # the last microbatch's loss, as the reference
+
+    @torch.no_grad()
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        loss, metrics, grads = compute_grads(state["params"], batch)
+        new_params, new_opt, opt_metrics = opt_lib.apply_updates(
+            opt_cfg, state["params"], grads, state["opt"])
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        return new_state, metrics
+
+    train_step.compute_grads = compute_grads  # (params, batch) -> (loss, metrics, grads)
+    return train_step
+
+
+def _params(model) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def init_state(model, opt_cfg: opt_lib.OptConfig, generator: torch.Generator):
+    """Initialise the model's parameters from ``generator`` and return the
+    train state; its parameters share storage with the model's."""
+    params = _params(model.init(generator))
+    return {"params": params,
+            "opt": opt_lib.init_opt_state(opt_cfg, params),
+            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def state_shapes(model, opt_cfg: opt_lib.OptConfig):
+    """The train state as ``meta`` tensors (shapes and dtypes, no data)."""
+    params = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in _params(model).items()}
+    return {"params": params,
+            "opt": opt_lib.opt_state_shapes(opt_cfg, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}

@@ -1,5 +1,5 @@
-"""The hand-written kernels' wrappers (flash attention, SSD chunked scan),
-and the kernels on the card.
+"""The hand-written kernels' wrappers (flash attention, SSD chunked scan,
+RMSNorm forward and backward), and the kernels on the card.
 
 Imports no JAX, so the whole file also runs on the card's machine:
 
@@ -17,8 +17,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked_ref  # noqa: E402
 
 # the reference's kernel tolerances (tests/test_kernels.py)
@@ -119,6 +120,44 @@ def test_ssd_library_is_named_by_source_hash():
     assert path != fa.LIBRARY.path()
 
 
+def test_rmsnorm_wrappers_refuse_cpu_tensors():
+    x, g = torch.zeros(4, 64), torch.ones(64)
+    before = (rn.fwd_launches, rn.bwd_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_fwd(x, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_bwd(x, g, torch.ones(4), x)
+    assert (rn.fwd_launches, rn.bwd_launches) == before
+
+
+@pytest.mark.parametrize("x_dtype,d,g_dtype,match", [
+    (torch.float16, 64, torch.float32, "dtype"),
+    (torch.float64, 64, torch.float32, "dtype"),
+    (torch.bfloat16, 64, torch.bfloat16, "gain dtype"),
+    (torch.bfloat16, 60, torch.float32, "row width"),   # not a whole number of 16-byte vectors
+    (torch.float32, 66, torch.float32, "row width"),
+    (torch.float32, 8196, torch.float32, "row width"),  # above MAX_D
+])
+def test_rmsnorm_wrapper_rejects_unsupported_inputs(x_dtype, d, g_dtype, match):
+    with pytest.raises((ValueError, TypeError), match=match):
+        rn.rmsnorm_fwd(torch.zeros(4, d, dtype=x_dtype), torch.ones(d, dtype=g_dtype))
+
+
+def test_rmsnorm_build_without_nvcc_raises(monkeypatch, tmp_path):
+    # a library not yet built, with no nvcc to build it: load raises, no fallback
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kbuild.CudaLibrary("rmsnorm.cu", rn._bind).load()
+
+
+def test_rmsnorm_library_is_named_by_source_hash():
+    path = rn.LIBRARY.path()
+    assert path.parent == kbuild.BUILD_DIR and path.name.startswith("librmsnorm-")
+    assert path not in (fa.LIBRARY.path(), ssd.LIBRARY.path())
+
+
 # --- on the card only ---------------------------------------------------
 
 
@@ -196,3 +235,68 @@ def test_ssd_model_layout_wrapper_launches_on_card(cuda):
     np.testing.assert_allclose(y.float().cpu().numpy(), yw.float().numpy(),
                                atol=SSD_TOL["bfloat16"], rtol=SSD_TOL["bfloat16"])
     np.testing.assert_allclose(state.cpu().numpy(), sw.numpy(), atol=2e-4, rtol=2e-4)
+
+
+# RMSNorm: the reference's kernel tolerances (y, and dx) for each dtype;
+# dgain (an fp32 sum over rows) within 1e-4 of its largest entry
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _rms_inputs(r, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(dtype)
+    return x, g, dy
+
+
+@pytest.mark.parametrize("r,d", [(1, 64), (7, 896), (300, 1024), (8, 896), (2081, 896),
+                                 (513, 8192), (3, 5120)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernels_match_plain_on_card(cuda, r, d, dtype):
+    x, g, dy = (t.to(cuda) for t in _rms_inputs(r, d, getattr(torch, dtype), seed=r + d))
+    before = (rn.fwd_launches, rn.bwd_launches)
+    y, rstd = rn.rmsnorm_fwd(x, g)
+    dx, dgain = rn.rmsnorm_bwd(x, g, rstd, dy)
+    torch.cuda.synchronize()
+    assert (rn.fwd_launches, rn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == dx.dtype == x.dtype and rstd.dtype == dgain.dtype == torch.float32
+    xr = x.float().requires_grad_(True)
+    gr = g.clone().requires_grad_(True)
+    want = rmsnorm_ref(xr, gr)
+    want_dx, want_dg = torch.autograd.grad(want, (xr, gr), dy.float())
+    tol = RMS_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(), want.to(x.dtype).float().detach().cpu(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(dx.float().cpu().numpy(), want_dx.to(x.dtype).float().cpu(),
+                               atol=tol, rtol=tol)
+    scale = want_dg.abs().max().item()
+    np.testing.assert_allclose(dgain.cpu().numpy(), want_dg.cpu().numpy(), atol=1e-4 * scale,
+                               rtol=0)
+
+
+def test_rmsnorm_dgain_is_deterministic_on_card(cuda):
+    x, g, dy = (t.to(cuda) for t in _rms_inputs(16648, 1024, torch.bfloat16))
+    _, rstd = rn.rmsnorm_fwd(x, g)
+    first = rn.rmsnorm_bwd(x, g, rstd, dy)[1]
+    for _ in range(3):
+        assert torch.equal(rn.rmsnorm_bwd(x, g, rstd, dy)[1], first)
+
+
+def test_rmsnorm_op_differentiates_through_the_kernels_on_card(cuda):
+    x, g, dy = _rms_inputs(2 * 37, 896, torch.bfloat16)
+    xc = x.reshape(2, 37, 896).to(cuda).requires_grad_(True)
+    gc = g.to(cuda).requires_grad_(True)
+    before = (rn.fwd_launches, rn.bwd_launches)
+    y = ops.rmsnorm(xc, gc)
+    y.backward(dy.reshape(2, 37, 896).to(cuda))
+    assert (rn.fwd_launches, rn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    xp = x.reshape(2, 37, 896).requires_grad_(True)
+    gp = g.clone().requires_grad_(True)
+    ops.rmsnorm(xp, gp).backward(dy.reshape(2, 37, 896))  # the CPU path: rmsnorm_ref
+    tol = RMS_TOL["bfloat16"]
+    np.testing.assert_allclose(y.float().detach().cpu(), ops.rmsnorm(xp, gp).float().detach(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(xc.grad.float().cpu(), xp.grad.float(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(gc.grad.cpu(), gp.grad, atol=1e-4 * gp.grad.abs().max().item(),
+                               rtol=0)

@@ -1,4 +1,5 @@
-"""The port's boundaries: no JAX inside it, the card by default, and
+"""The port's boundaries: no JAX inside it (every module imports, and the
+serving, train-step and profiler-trace paths run), the card by default, and
 chip_smoke.py refusing to run without a card or without the repository."""
 
 import os
@@ -39,6 +40,15 @@ def test_port_imports_and_runs_with_jax_blocked():
             eng = DecodeEngine(model, batch=1, max_seq=12)
             out = eng.generate(eng.prefill({"tokens": torch.zeros(1, 12, dtype=torch.long)}), 3)
             assert out.shape == (1, 4)
+            from repro_torch.core import profiler
+            from repro_torch.train import optimizer, step
+            _, fn, specs, batch = profiler.lm_trace(cfg, 1, 8)
+            assert profiler.trace_step(fn, (specs, batch))["nsm_edges"]
+            train = step.make_train_step(model, optimizer.OptConfig())
+            state = step.init_state(model, optimizer.OptConfig(), torch.Generator().manual_seed(0))
+            tok = torch.zeros(1, 8, dtype=torch.long)
+            _, metrics = train(state, {"tokens": tok, "labels": tok})
+            assert torch.isfinite(metrics["loss"])
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                         and sys.modules[m] is not None)
         assert not leaked, leaked
