@@ -13,14 +13,20 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    on the card, causal and not, fp32 (tolerance 3e-5) and bf16 (2e-2):
    the reference's kernel-test shapes plus the serving prefill's
    (8, 2048, 14, 64) and ragged (8, 2081, 14, 64), with kernel, plain and
-   ``scaled_dot_product_attention`` times and the card's bound;
+   ``scaled_dot_product_attention`` times and the card's bound; then the
+   main path's call, ``kernels.ops.flash_attention`` on the model layout
+   with qwen2's 2 grouped KV heads at (8, 2081, 14, 64), checked and timed
+   beside the (B*H, S, d) call, SDPA and the bound;
 3. qwen2-0.5b at full width in fp32 (TF32 off): prefill logits through the
    kernel against the plain path, and prefill -> decode teacher forcing
    against the full forward, both at 2e-3;
 4. the first main path: qwen2-0.5b in bf16 at full width served by
    ``DecodeEngine`` (batch 8, prompt 2048 padded to 2081, 32 greedy
    steps), twice, with the kernels' launch counts read around each run,
-   then device profiles of one prefill and of decode steps;
+   then device profiles of one prefill and of decode steps, and a
+   profiler listing of the aten ops around the flash kernel in a layer's
+   causal attention (only the output's allocation: no expand, transpose
+   or copy of q, k, v or o);
 5. the SSD chunked-scan kernel against its plain version
    ``ssd_chunked_ref`` on the card, fp32 (y within 2e-4) and bf16 (y within
    2e-2 of the fp32 plain result cast to bf16), the final state within 2e-4:
@@ -74,6 +80,7 @@ H100_HBM_BYTES_S = 3.35e12
 KERNEL_SHAPES = [(1, 128, 1, 32), (2, 256, 4, 64), (1, 384, 3, 64), (2, 128, 2, 128),
                  (8, 2048, 14, 64), (8, 2081, 14, 64)]
 MAIN_SHAPE = (8, 2081, 14, 64)  # serving prefill: prompt 2048 + 32 steps + 1
+MAIN_KV_HEADS = 2  # qwen2-0.5b's grouped K/V, read unexpanded in the model layout
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 MODEL_TOL = 2e-3
 
@@ -145,22 +152,23 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def attention_bound_ms(bh: int, sq: int, sk: int, d: int, causal: bool, dtype_bytes: int,
-                       peak_flops: float):
+                       peak_flops: float, kv_share: float = 1.0):
     """Least time for the work: 4*d FLOP per (query, key) pair the mask keeps,
-    against q, k, v read once and o written once."""
+    against q, k, v read once and o written once; ``kv_share`` is KV / H
+    where grouped K/V are read unexpanded."""
     if causal:  # top-left aligned: query i keeps keys 0..min(i, sk-1)
         pairs = sum(min(i + 1, sk) for i in range(sq))
     else:
         pairs = sq * sk
     flops = 4.0 * d * pairs * bh
-    nbytes = float(dtype_bytes) * bh * d * (2 * sq + 2 * sk)
+    nbytes = float(dtype_bytes) * bh * d * (2 * sq + 2 * sk * kv_share)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_phase(torch, F, fa, attention_ref):
+def kernel_phase(torch, F, fa, kops, attention_ref):
     print("== phase 2: flash-attention kernel vs plain on the card")
-    main = None
+    bhsd = None
     for (b, s, h, hd) in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
@@ -188,10 +196,45 @@ def kernel_phase(torch, F, fa, attention_ref):
                       f"max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"sdpa_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
                 if (b, s, h, hd) == MAIN_SHAPE and dtype == torch.bfloat16 and causal:
-                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=by, library_ms=lib_ms)
+                    bhsd = dict(ms=ms, library_ms=lib_ms)
                 del q, k, v, got, want, diff
-    return main
+    check(bhsd is not None, "main-path flash-attention shape was not run")
+    return model_layout_main(torch, F, kops, attention_ref, bhsd)
+
+
+def model_layout_main(torch, F, kops, attention_ref, bhsd):
+    """The main path's call: ``kernels.ops.flash_attention`` on q (B, S, H, d)
+    and grouped k/v (B, S, KV, d) as the model makes them, against
+    ``attention_ref`` on K/V expanded to H heads; timed beside the (BH, S, d)
+    kernel call, SDPA and the bound. Its numbers are the kernel's entry in
+    the ``kernels`` line."""
+    b, s, h, hd = MAIN_SHAPE
+    kv = MAIN_KV_HEADS
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).bfloat16()
+            for _ in range(2))
+    got = kops.flash_attention(q, k, v, causal=True)
+    expanded = [t.repeat_interleave(h // kv, dim=2) for t in (k, v)]
+    flat = [t.transpose(1, 2).reshape(b * h, s, hd) for t in (q, *expanded)]
+    want = attention_ref(*flat, True).reshape(b, h, s, hd).transpose(1, 2)
+    torch.cuda.synchronize()
+    tol = TOL["bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    check((diff - (tol + tol * want.float().abs())).max().item() <= 0,
+          f"model-layout kernel {MAIN_SHAPE} KV {kv}: max abs err {err} over tol {tol}")
+    ms = time_ms(torch, lambda: kops.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: attention_ref(*flat, True))
+    q4, k4, v4 = (t.view(b, h, s, hd) for t in flat)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    bound, by = attention_bound_ms(b * h, s, s, hd, True, 2, H100_BF16_FLOPS, kv / h)
+    print(f"main shape {MAIN_SHAPE} bf16 causal, model layout with {kv} KV heads: "
+          f"max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} (B*H, S, d) ms={bhsd['ms']:.4f}"
+          f" sdpa_ms={lib_ms:.4f} (same call {bhsd['library_ms']:.4f}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
 
 def model_check_phase(torch, label, cfg_full, build_model, all_plain, steps):
@@ -294,6 +337,37 @@ def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect, 
     del model, engine
     torch.cuda.empty_cache()
     return runs[0][1]
+
+
+def attention_ops_listing(torch, cfg) -> None:
+    """Phase 4's listing: every aten op that runs in a prefill layer's causal
+    attention on the card, on q, k, v as the layer makes them (q (B, S, H, d),
+    k and v with their KV heads). Only the output's allocation may run beside
+    the kernel: no expand, transpose or copy of q, k, v or o."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention as tattn
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    b, s = SERVE_BATCH, PROMPT + STEPS + 1
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = {name: (0.05 * torch.randn(shape, generator=gen, device=DEVICE)).bfloat16()
+         for name, shape in (("wq", (d, h * hd)), ("wk", (d, kv * hd)), ("wv", (d, kv * hd)),
+                             ("bq", (h * hd,)), ("bk", (kv * hd,)), ("bv", (kv * hd,)))}
+    x = torch.randn((b, s, d), generator=gen, device=DEVICE).bfloat16()
+    pos = torch.arange(s, device=DEVICE)[None, :]
+    q = tattn._apply_rope(cfg, tattn._project_q(p, cfg, x), pos)
+    k, v = tattn._project_kv(p, cfg, x, x.dtype)
+    k = tattn._apply_rope(cfg, k, pos)
+    tattn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        o = tattn.causal_attention(q, k, v)
+    ops = {e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::")}
+    print(f"causal attention of a prefill layer: q {tuple(q.shape)} stride {q.stride()}, "
+          f"k/v {tuple(k.shape)} stride {k.stride()} -> o {tuple(o.shape)} stride "
+          f"{o.stride()}; aten ops around the kernel: {ops}")
+    check(set(ops) <= {"aten::empty_like", "aten::empty_strided", "aten::empty"},
+          f"ops besides the output's allocation around the flash kernel: {ops}")
+    check(k.shape[2] == kv and o.is_contiguous(), "K/V expanded or o not in the model layout")
 
 
 def ssd_bound_ms(b, l, h, p, n, chunk, dtype_bytes):
@@ -630,6 +704,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import profiler as tprof
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
@@ -648,14 +723,14 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels = {"flash_attention": fa, "ssd_scan": ssd, "rmsnorm": rn}
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
-        for fut in [pool.submit(mod.LIBRARY.load) for mod in kernels.values()]:
+    libraries = {"flash_attention": fa.LIBRARY, "ssd_scan": ssd.LIBRARY, "rmsnorm": rn.LIBRARY}
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
+        for fut in [pool.submit(lib.load) for lib in libraries.values()]:
             fut.result()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    for name, mod in kernels.items():
-        print(f"{name}: {mod.LIBRARY.path().name}")
-        for line in mod.LIBRARY.log.splitlines():
+    for name, lib in libraries.items():
+        print(f"{name}: {lib.path().name}")
+        for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
     # each kernel's launch counter: its wrapper module and the counter's name
@@ -665,8 +740,7 @@ def main() -> int:
     def all_plain():
         return use_impls(attention="plain", ssd="plain", norm="plain")
 
-    flash_main = kernel_phase(torch, F, fa, attention_ref)
-    check(flash_main is not None, "main-path flash-attention shape was not run")
+    flash_main = kernel_phase(torch, F, fa, kops, attention_ref)
     qwen = get_config("qwen2-0.5b")
     norms = 2 * qwen.num_layers + 1  # two a layer and the final norm
     model_check_phase(torch, "phase 3", qwen, build_model, all_plain, steps=1)
@@ -675,6 +749,7 @@ def main() -> int:
         {"flash_attention": qwen.num_layers, "ssd_scan": 0, "rmsnorm_fwd": norms,
          "rmsnorm_bwd": 0},
         {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * STEPS, "rmsnorm_bwd": 0})
+    attention_ops_listing(torch, qwen)
 
     ssd_main = ssd_phase(torch, ssd, ssd_chunked_ref)
     check(ssd_main is not None, "main-path SSD shape was not run")

@@ -13,70 +13,94 @@
 //
 // Inputs in the model layout, contiguous: xb (B, L, H, P) and bmat/cmat
 // (B, L, N) in one dtype (bf16 or fp32), dt (B, L, H) fp32, a_neg (H,) fp32.
-// Outputs: y (B, L, H, P) in xb's dtype, state (B, H, N, P) fp32.
+// Outputs: y (B, L, H, P) in xb's dtype, state (B, H, N, P) fp32. Scratch,
+// allocated by the caller: states (B, n_chunks, H, N, P) fp32 and decay
+// (B, n_chunks, H) fp32.
 //
-// Design. The TPU kernel walks the chunks on a sequential grid axis and
-// keeps the state in VMEM scratch between grid steps. Blocks on a GPU run
-// in no order, so here one block of 256 threads owns one (batch, head) and
-// loops over the chunks itself, keeping the state in shared memory. A
-// 256 x 256 fp32 C.B^T tile would not fit in shared memory, so a chunk is
-// cut into 64-row sub-tiles: each query tile sums over the key tiles at or
-// below the diagonal (G = C B^T masked by the decay, then G x), adds the
-// inter-chunk term from the state, and stores its rows; the key tile on the
-// diagonal also adds its part of the chunk's state update to registers. A
-// barrier after the last query tile orders every read of S_prev before the
-// state is rewritten. Entries above the causal diagonal are selected to 0,
-// never multiplied (exp of a positive difference can overflow, inf * 0 is
-// NaN). Ragged lengths are masked here: rows past L read as zero, take no
-// part in the decay and are not stored, which equals the reference's
-// padding with x = 0, dt = 0 (decay exactly 1). Q = min(chunk, L) as in
-// the reference, any Q up to 256.
+// Bound on an H100 SXM at the serving prefill (B=8, L=2081, H=32, P=64,
+// N=128, chunk 256, bf16): C B^T once per batch row and chunk (5.4e8 FLOP
+// on bf16 operands, 0.5 us at 989 TFLOP/s) and, per head, the causal G x,
+// C S_prev and the state update (2.5e10 FLOP on fp32 decay-weighted
+// operands, 0.37 ms at the 67 TFLOP/s of fp32 FMAs): 0.374 ms; the bytes
+// (x and y 68 MB each, B, C, dt and the state 19 MB) take 0.046 ms.
 //
-// Arithmetic: every product runs in fp32 FMAs on the CUDA cores, for both
-// input dtypes (bf16 inputs are widened on their way into shared memory).
-// The decay-weighted operands are fp32 and are not rounded to bf16 or TF32,
-// so the state holds to 2e-4 of the plain fp32 scan. Each thread holds a
-// 4 x 4 (or 4 x P/16) register tile and reads its operands from shared
-// memory as float4 (transposed tiles are padded by 4 floats per row).
-//
-// Bound on an H100 SXM at the serving prefill this slice runs (B=8, L=2081,
-// H=32, P=64, N=128, chunk 256, bf16): the useful work is C B^T once per
-// batch and chunk (5.4e8 FLOP on bf16 operands, 0.5 us at the 989 TFLOP/s
-// of bf16 tensor cores) and, per head, the causal G x, C S_prev and the
-// state update (2.5e10 FLOP on fp32 decay-weighted operands, 0.37 ms at
-// the 67 TFLOP/s of fp32 FMAs): 0.374 ms in all. The bytes (x and y 68 MB
-// each, B, C, dt and the state 19 MB) take 0.046 ms at 3.35 TB/s. So the
-// kernel is bound by operations. This first version
-// recomputes C B^T in every head's block and computes the diagonal key
-// tiles whole, about 5.1e10 FLOP, and holds one 138 KB block per SM (256
-// blocks in two waves on 132 SMs); bf16 C B^T on the tensor cores
-// (mma.sync, exact for bf16 operands) and C B^T shared across heads are
-// the ways to the bound.
+// Design. The TPU kernel walks the chunks on a sequential grid axis with
+// the state in VMEM. Here the SSD decomposition runs as three launches, so
+// that all but a short recurrence is parallel over chunks:
+//  1. ssd_chunk_state, one block per (chunk, head, batch): the cumsum of
+//     dt*A and the chunk's own state dS_c = sum_s exp(cum_end - cum_s)
+//     B_s x_s^T into `states`, and exp(cum_end) into `decay`.
+//  2. ssd_state_pass, a thread per four (n, p) of a (batch, head): the
+//     recurrence S_c = exp(cum_end_c) S_{c-1} + dS_c over the chunks, in
+//     place, so `states[c]` ends as the state entering chunk c; the last S
+//     is the final state.
+//  3. ssd_output, one block per (64-row query tile of a chunk, pair of
+//     heads, batch), 128 threads a head, the late (heavy) tiles issued
+//     first: C B^T of each key tile at or below the diagonal is computed
+//     once for the pair (bf16: mma.sync m16n8k16, exact products, fp32
+//     sums; fp32: FMAs, since TF32 would miss 2e-4), weighted by each
+//     head's decay into G (entries above the diagonal selected to 0, never
+//     multiplied: exp of a positive difference can overflow), and G x
+//     summed on fp32 FMAs; on the diagonal tile a warp stops at its last
+//     row. Then exp(cum_t) C_t . S_prev is added from `states` (chunk 0
+//     has none). About 105 KB of
+//     shared memory a block at N 128, P 64 in bf16, so two blocks share an
+//     SM; the grid at the serving shape is 9 x 4 x 16 x 8 = 4608 blocks,
+//     which keeps the last wave short.
+// The decay-weighted products (G x, C S_prev, the state update) take fp32
+// operands on fp32 FMAs, as the bound prices them. Ragged lengths are
+// masked here: rows past L read as zero and take no part in the decay,
+// which equals the reference's padding with x = 0, dt = 0 (decay exactly
+// 1). Q = min(chunk, L) as in the reference, any Q up to 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;           // rows of a sub-tile of the chunk
-constexpr int kPad = kTile + 4;     // row of a transposed tile in shared memory, floats
+constexpr int kTile = 64;           // rows of a sub-tile of the chunk in the outputs
+constexpr int kStateTile = 32;      // rows of a sub-tile in the chunk states (static smem < 48 KB)
 constexpr int kMaxChunk = 256;      // == kThreads: one thread per row in the cumsum
 constexpr int kMaxN = 128;
-constexpr int kMaxRows = kMaxN / 16;  // state rows a thread owns (n = ty + 16 r)
+constexpr int kHeadGroup = 2;       // heads of one output block, sharing its C B^T
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// K consecutive outputs of a row in one store (K = 1, 2 or 4).
+template <int K>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[K]) {
+  if constexpr (K == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (K == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else *p = v[0];
+}
+template <int K>
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float (&v)[K]) {
+  if constexpr (K == 1) {
+    *p = __float2bfloat16(v[0]);
+  } else {
+    uint32_t w[K / 2];
+#pragma unroll
+    for (int j = 0; j < K / 2; ++j) {
+      __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<uint32_t*>(&b);
+    }
+    if constexpr (K == 4) *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else *reinterpret_cast<uint32_t*>(p) = w[0];
+  }
+}
 
-// TN consecutive floats of shared memory (16-byte aligned for TN = 4).
-template <int TN>
-__device__ __forceinline__ void lds(float (&v)[TN], const float* p) {
-  if constexpr (TN == 4) {
+// K consecutive floats of shared memory, aligned to min(16, 4K) bytes.
+template <int K>
+__device__ __forceinline__ void lds(float (&v)[K], const float* p) {
+  if constexpr (K == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else if constexpr (K == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (TN == 2) {
+  } else if constexpr (K == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x; v[1] = t.y;
   } else {
@@ -84,23 +108,14 @@ __device__ __forceinline__ void lds(float (&v)[TN], const float* p) {
   }
 }
 
-// rows x n of a (rows, n) row-major source into dst[n * kPad + row]; rows
-// from `valid` to kTile are zero.
-template <typename T>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src, int valid, int n) {
-  for (int i = threadIdx.x; i < kTile * n; i += kThreads) {
-    const int row = i / n, col = i % n;
-    dst[col * kPad + row] = row < valid ? widen(src[i]) : 0.f;
-  }
-}
-
-// rows x P of x, rows `stride` elements apart, into dst[row * P + p].
-template <typename T, int P>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int valid, size_t stride) {
-  for (int i = threadIdx.x; i < kTile * P; i += kThreads) {
-    const int row = i / P, col = i % P;
-    dst[i] = row < valid ? widen(src[row * stride + col]) : 0.f;
-  }
+// Four consecutive elements of a tile row in shared memory, as floats.
+__device__ __forceinline__ void lds4(float (&v)[4], const float* p) { lds<4>(v, p); }
+__device__ __forceinline__ void lds4(float (&v)[4], const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
 
 // Inclusive prefix sum of v over the block's 256 threads.
@@ -123,222 +138,511 @@ __device__ __forceinline__ float block_cumsum(float v, float* part) {
     if (lane < kThreads / 32) part[lane] = w;
   }
   __syncthreads();
-  return warp > 0 ? v + part[warp - 1] : v;
+  const float out = warp > 0 ? v + part[warp - 1] : v;
+  __syncthreads();  // `part` may be reused by the next call
+  return out;
 }
 
-size_t smem_floats(int n, int p) {
-  return static_cast<size_t>(n) * p        // state
-         + 2 * static_cast<size_t>(n) * kPad  // C and B tiles, transposed
-         + static_cast<size_t>(kTile) * p  // x tile
-         + static_cast<size_t>(kTile) * kPad  // masked G, transposed
-         + 2 * kMaxChunk;                  // cum and exp(cum_end - cum)
+// cum_t = sum_{s<=t} dt_s * A over the chunk's rows; rows past `len` (and a
+// head past `heads`) add 0.
+__device__ __forceinline__ float chunk_cumsum(const float* dt, const float* a_neg, size_t row0,
+                                              int len, int heads, int h, float* part) {
+  const int tid = threadIdx.x;
+  const float loga = (tid < len && h < heads) ? dt[(row0 + tid) * heads + h] * a_neg[h] : 0.f;
+  return block_cumsum(loga, part);
 }
 
-template <typename T, int TN>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ xb, const float* __restrict__ dt,
+// 16 bytes holding T values, as floats (the last argument picks T).
+__device__ __forceinline__ void widen_u4(float (&v)[4], uint4 u, float) {
+  v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen_u4(float (&v)[8], uint4 u, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+    v[2 * j] = __low2float(b);
+    v[2 * j + 1] = __high2float(b);
+  }
+}
+
+// 16 bytes of T at p (16-byte aligned), as floats.
+template <typename T, int V>
+__device__ __forceinline__ void widen_vec(float (&v)[V], const T* p) {
+  widen_u4(v, *reinterpret_cast<const uint4*>(p), T{});
+}
+
+// Rows x cols of a row-major source with rows `ld` elements apart into
+// dst[row * stride + col], 16 bytes a load: zero past `valid` rows and past
+// column n. cols / (16 / sizeof(T)) is a power of two; n, ld and stride keep
+// every vector 16-byte aligned. Each value is scaled by scale[row] if given.
+template <int Rows, typename S, typename T>
+__device__ __forceinline__ void load_tile(S* dst, int stride, const T* src, size_t ld,
+                                          int valid, int n, int cols,
+                                          const float* scale = nullptr) {
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = cols / V, shift = __ffs(vpr) - 1;
+  for (int i = threadIdx.x; i < Rows * vpr; i += kThreads) {
+    const int row = i >> shift, col = (i & (vpr - 1)) * V;
+    float v[V];
+    if (row < valid && col < n) {
+      widen_vec(v, src + row * ld + col);
+      if (scale != nullptr) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] *= scale[row];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
+    S* d = dst + row * stride + col;
+    if constexpr (sizeof(S) == 2) {
+      uint32_t w[V / 2];
+#pragma unroll
+      for (int j = 0; j < V / 2; ++j) {
+        __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        w[j] = *reinterpret_cast<uint32_t*>(&b);
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; j += 4)
+        *reinterpret_cast<float4*>(d + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    }
+  }
+}
+
+// exp(x) of the decay weights in the outputs: for bf16 inputs the
+// hardware's approximate exp2 (a few ulp, far inside the bf16 tolerance);
+// for fp32 inputs expf, whose error the fp32 tolerance of 2e-4 needs where
+// y is a small sum of large terms.
+template <typename T>
+__device__ __forceinline__ float decay_exp(float x) {
+  if constexpr (sizeof(T) == 2) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+    return y;
+  } else {
+    return expf(x);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1. Chunk states
+// ---------------------------------------------------------------------------
+
+// grid (n_chunks, heads, batch). A thread owns state rows n = ty*RN + r and
+// columns p = tx*TN + c.
+template <typename T, int TN, int RN>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_state(const T* __restrict__ xb, const float* __restrict__ dt,
                 const float* __restrict__ a_neg, const T* __restrict__ bmat,
-                const T* __restrict__ cmat, T* __restrict__ y, float* __restrict__ state,
-                int len_total, int heads, int n_state, int chunk) {
-  constexpr int P = 16 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* sS = smem;                         // (N, P) carried state
-  float* sC = sS + n_state * P;             // (N, kPad): C of the query tile, C[t][n] at n*kPad+t
-  float* sB = sC + n_state * kPad;          // (N, kPad): B of the key tile
-  float* sX = sB + n_state * kPad;          // (kTile, P): x of the key tile
-  float* sG = sX + kTile * P;               // (kTile, kPad): G^T[s][t]
-  float* sCum = sG + kTile * kPad;          // (kMaxChunk,) cum within the chunk
-  float* sW = sCum + kMaxChunk;             // (kMaxChunk,) exp(cum_end - cum_s)
+                float* __restrict__ states, float* __restrict__ decay, int len_total, int heads,
+                int n_state, int chunk) {
+  constexpr int P = 16 * TN, NN = 16 * RN;
+  constexpr int kBStride = NN + 4, kXStride = P + 4;
+  __shared__ __align__(16) float sB[kStateTile * kBStride];
+  __shared__ __align__(16) float sX[kStateTile * kXStride];
+  __shared__ float sW[kMaxChunk];
   __shared__ float sPart[kThreads / 32];
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float a = a_neg[h];
-  const size_t x_stride = static_cast<size_t>(heads) * P;  // between rows of x and y
+  const int c0 = c * chunk, len = min(chunk, len_total - c0);
+  const size_t row0 = static_cast<size_t>(b) * len_total + c0;
+  const size_t x_stride = static_cast<size_t>(heads) * P;
 
-  for (int i = tid; i < n_state * P; i += kThreads) sS[i] = 0.f;
+  const float cum = chunk_cumsum(dt, a_neg, row0, len, heads, h, sPart);
+  sW[tid] = cum;
+  __syncthreads();
+  const float cum_end = sW[len - 1];
+  __syncthreads();
+  sW[tid] = tid < len ? expf(cum_end - cum) : 0.f;
+  if (tid == 0) decay[(static_cast<size_t>(b) * gridDim.x + c) * heads + h] = expf(cum_end);
 
-  for (int c0 = 0; c0 < len_total; c0 += chunk) {
-    const int len = min(chunk, len_total - c0);  // valid rows of this chunk
-    const size_t row0 = static_cast<size_t>(b) * len_total + c0;
+  float acc[RN][TN];
+#pragma unroll
+  for (int r = 0; r < RN; ++r)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[r][j] = 0.f;
 
-    // cum_t = sum_{s<=t} dt_s * A over the chunk; rows past len add 0
-    const float loga = tid < len ? dt[(row0 + tid) * heads + h] * a : 0.f;
-    const float cum = block_cumsum(loga, sPart);
-    sCum[tid] = cum;
+  for (int s0 = 0; s0 < len; s0 += kStateTile) {
+    const int slen = min(kStateTile, len - s0);
+    __syncthreads();  // the last tile's readers are done (and sW is written)
+    load_tile<kStateTile>(sB, kBStride, bmat + (row0 + s0) * n_state, n_state, slen, n_state,
+                          NN);
+    // x weighted by its decay to the chunk's end
+    load_tile<kStateTile>(sX, kXStride, xb + (row0 + s0) * x_stride + static_cast<size_t>(h) * P,
+                          x_stride, slen, P, P, sW + s0);
     __syncthreads();
-    const float cum_end = sCum[len - 1];
-    sW[tid] = expf(cum_end - cum);
-
-    float ds[kMaxRows][TN];  // this chunk's sum_s w_s B_s x_s^T, n = ty + 16 r, p = tx*TN + c
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) ds[r][c] = 0.f;
-
-    for (int t0 = 0; t0 < len; t0 += kTile) {
-      const int tlen = min(kTile, len - t0);
-      __syncthreads();  // the last tile's readers of sC are done
-      load_transposed(sC, cmat + (row0 + t0) * n_state, tlen, n_state);
-
-      float acc[4][TN];  // y rows t0 + ty*4 + r, columns tx*TN + c
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
-
-      for (int s0 = 0; s0 <= t0; s0 += kTile) {
-        const int slen = min(kTile, len - s0);
-        __syncthreads();  // the last key tile's readers of sB, sX and sG are done
-        load_transposed(sB, bmat + (row0 + s0) * n_state, slen, n_state);
-        load_rows<T, P>(sX, xb + (row0 + s0) * x_stride + static_cast<size_t>(h) * P, slen,
-                        x_stride);
-        __syncthreads();
-
-        // G^T[s][t] = C_t . B_s for s = s0 + ty*4 + r, t = t0 + tx*4 + c
-        float g[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) g[r][c] = 0.f;
 #pragma unroll 4
-        for (int n = 0; n < n_state; ++n) {
-          float bv[4], cv[4];
-          lds<4>(bv, sB + n * kPad + ty * 4);
-          lds<4>(cv, sC + n * kPad + tx * 4);
+    for (int s = 0; s < slen; ++s) {
+      float bv[RN], xv[TN];
+      lds<RN>(bv, sB + s * kBStride + ty * RN);
+      lds<TN>(xv, sX + s * kXStride + tx * TN);
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < RN; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) g[r][c] = fmaf(bv[r], cv[c], g[r][c]);
-        }
-        // causal decay, selected (never multiplied) to 0 above the diagonal
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int s = s0 + ty * 4 + r;
-          float o[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int t = t0 + tx * 4 + c;
-            o[c] = (s <= t && t < len) ? g[r][c] * expf(sCum[t] - sCum[s]) : 0.f;
-          }
-          *reinterpret_cast<float4*>(sG + (ty * 4 + r) * kPad + tx * 4) =
-              make_float4(o[0], o[1], o[2], o[3]);
-        }
-        __syncthreads();
-
-        // y[t][p] += sum_s G^T[s][t] x[s][p] for t = t0 + ty*4 + r, p = tx*TN + c
-#pragma unroll 4
-        for (int s = 0; s < slen; ++s) {
-          float gv[4], xv[TN];
-          lds<4>(gv, sG + s * kPad + ty * 4);
-          lds<TN>(xv, sX + s * P + tx * TN);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(gv[r], xv[c], acc[r][c]);
-        }
-
-        if (s0 == t0) {  // the diagonal key tile: its part of the state update
-          for (int s = 0; s < slen; ++s) {
-            const float w = sW[s0 + s];
-            float xv[TN];
-            lds<TN>(xv, sX + s * P + tx * TN);
-#pragma unroll
-            for (int c = 0; c < TN; ++c) xv[c] *= w;
-#pragma unroll
-            for (int r = 0; r < kMaxRows; ++r) {
-              const int n = ty + 16 * r;
-              if (n < n_state) {
-                const float bn = sB[n * kPad + s];
-#pragma unroll
-                for (int c = 0; c < TN; ++c) ds[r][c] = fmaf(bn, xv[c], ds[r][c]);
-              }
-            }
-          }
-        }
-      }
-
-      // inter-chunk term: y_t += exp(cum_t) C_t . S_prev
-      float cs[4][TN];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) cs[r][c] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < n_state; ++n) {
-        float cv[4], sv[TN];
-        lds<4>(cv, sC + n * kPad + ty * 4);
-        lds<TN>(sv, sS + n * P + tx * TN);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) cs[r][c] = fmaf(cv[r], sv[c], cs[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int t = ty * 4 + r;
-        if (t < tlen) {
-          const float e = expf(sCum[t0 + t]);
-          T* dst = y + (row0 + t0 + t) * x_stride + static_cast<size_t>(h) * P + tx * TN;
-#pragma unroll
-          for (int c = 0; c < TN; ++c) narrow(dst + c, acc[r][c] + e * cs[r][c]);
-        }
-      }
+        for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(bv[r], xv[j], acc[r][j]);
     }
-
-    __syncthreads();  // every query tile has read S_prev
-    const float decay = expf(cum_end);
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      const int n = ty + 16 * r;
-      if (n < n_state) {
-#pragma unroll
-        for (int c = 0; c < TN; ++c) {
-          float* sp = sS + n * P + tx * TN + c;
-          *sp = fmaf(decay, *sp, ds[r][c]);
-        }
-      }
-    }
-    __syncthreads();  // the new state is whole before the next chunk reads it
   }
 
-  float* out = state + (static_cast<size_t>(b) * heads + h) * n_state * P;
-  for (int i = tid; i < n_state * P; i += kThreads) out[i] = sS[i];
+  float* out = states + ((static_cast<size_t>(b) * gridDim.x + c) * heads + h) * n_state * P;
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int n = ty * RN + r;
+    if (n < n_state) store_row<TN>(out + n * P + tx * TN, acc[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. The recurrence over chunks
+// ---------------------------------------------------------------------------
+
+// grid (ceil(N*P / 1024), heads, batch), four consecutive (n, p) a thread:
+// states[c] <- the state entering chunk c; the state after the last chunk
+// goes to `final_state`. The loads of up to kBatch chunks are issued
+// together, so the recurrence waits on memory once per batch of chunks.
+constexpr int kBatch = 8;
+
+__global__ void __launch_bounds__(kThreads)
+ssd_state_pass(float* __restrict__ states, const float* __restrict__ decay,
+               float* __restrict__ final_state, int n_chunks, int heads, int np) {
+  const int e = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  if (e >= np) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < n_chunks; c0 += kBatch) {
+    float4 d[kBatch];
+    float a[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (c0 + j < n_chunks) {
+        const size_t bc = (static_cast<size_t>(b) * n_chunks + c0 + j) * heads + h;
+        d[j] = *reinterpret_cast<const float4*>(states + bc * np + e);
+        a[j] = decay[bc];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (c0 + j < n_chunks) {
+        const size_t bc = (static_cast<size_t>(b) * n_chunks + c0 + j) * heads + h;
+        *reinterpret_cast<float4*>(states + bc * np + e) = s;
+        s = make_float4(fmaf(a[j], s.x, d[j].x), fmaf(a[j], s.y, d[j].y),
+                        fmaf(a[j], s.z, d[j].z), fmaf(a[j], s.w, d[j].w));
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(final_state + (static_cast<size_t>(b) * heads + h) * np + e) = s;
+}
+
+// ---------------------------------------------------------------------------
+// 3. Outputs
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// C_t . B_s for a 64 x 64 (t, s) tile: 16 values a thread, value i at
+// (tb + cb_dt<T>(i), sb + cb_ds<T>(i)). bf16 on the tensor cores (warp w:
+// rows 16 (w % 4).., keys 32 (w / 4).., mma fragments); fp32 on FMAs
+// (t = ty*4 + r, s = tx + 16 c).
+template <typename T>
+__device__ __forceinline__ constexpr int cb_dt(int i) {
+  return sizeof(T) == 2 ? 8 * ((i >> 1) & 1) : i >> 2;
+}
+template <typename T>
+__device__ __forceinline__ constexpr int cb_ds(int i) {
+  return sizeof(T) == 2 ? 8 * (i >> 2) + (i & 1) : 16 * (i & 3);
+}
+
+__device__ __forceinline__ void cb_tile(float (&cb)[16], int& tb, int& sb,
+                                        const __nv_bfloat16* sC, const __nv_bfloat16* sB,
+                                        int stride, int n_pad) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tr = 16 * (warp & 3), sc = 32 * (warp >> 2);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) cb[i] = 0.f;
+  for (int k0 = 0; k0 < n_pad; k0 += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, sC + (tr + (lane & 15)) * stride + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nt = 0; nt < 4; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, sB + (sc + (nt + (lane >> 4)) * 8 + (lane & 7)) * stride + k0 +
+                         ((lane >> 3) & 1) * 8);
+      mma_16816(cb + 4 * nt, a, b[0], b[1]);
+      mma_16816(cb + 4 * nt + 4, a, b[2], b[3]);
+    }
+  }
+  tb = tr + (lane >> 2);
+  sb = sc + 2 * (lane & 3);
+}
+
+__device__ __forceinline__ void cb_tile(float (&cb)[16], int& tb, int& sb, const float* sC,
+                                        const float* sB, int stride, int n_pad) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) cb[i] = 0.f;
+  for (int n = 0; n < n_pad; n += 4) {
+    float cv[4][4], bv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) lds<4>(cv[r], sC + (ty * 4 + r) * stride + n);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) lds<4>(bv[c], sB + (tx + 16 * c) * stride + n);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cb[4 * r + c] = fmaf(cv[r][j], bv[c][j], cb[4 * r + c]);
+  }
+  tb = ty * 4;
+  sb = tx;
+}
+
+// Row stride of the C and B tiles in shared memory, in elements: bf16 rows
+// padded by 8 (16 bytes; ldmatrix reads are free of bank conflicts), fp32
+// rows by 4.
+template <typename T>
+__host__ __device__ constexpr int tile_pad() { return sizeof(T) == 2 ? 8 : 4; }
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+template <typename T, int P>
+__host__ __device__ inline size_t output_smem_bytes(int n_state) {
+  const int stride = pad16(n_state) + tile_pad<T>();
+  const size_t tiles = 2 * static_cast<size_t>(kTile) * stride * sizeof(T);  // C, B
+  const size_t intra = (static_cast<size_t>(kTile) * (kHeadGroup * P + 4) +  // x
+                        static_cast<size_t>(kHeadGroup) * kTile * (kTile + 4)) *  // G^T
+                       sizeof(float);
+  const size_t inter = static_cast<size_t>(kHeadGroup) * n_state * P * sizeof(float);  // S_prev
+  return tiles + (intra > inter ? intra : inter) + kHeadGroup * kMaxChunk * sizeof(float);
+}
+
+// grid (n_chunks * query tiles a chunk, ceil(heads / kHeadGroup), batch):
+// one 64-row query tile a block. Threads 128 g .. 128 g + 127 take head
+// h0 + g; a thread owns y rows t = ty*8 + r of the tile and columns
+// p = tx*TN + c.
+template <typename T, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_output(const T* __restrict__ xb, const float* __restrict__ dt,
+           const float* __restrict__ a_neg, const T* __restrict__ bmat,
+           const T* __restrict__ cmat, const float* __restrict__ states, T* __restrict__ y,
+           int len_total, int heads, int n_state, int chunk) {
+  static_assert(kHeadGroup * 128 == kThreads, "128 threads a head");
+  constexpr int P = 16 * TN, GP = kHeadGroup * P;
+  constexpr int kXStride = GP + 4, kGStride = kTile + 4;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int n_pad = pad16(n_state);
+  const int stride = n_pad + tile_pad<T>();
+  T* sC = reinterpret_cast<T*>(smem);                     // (kTile, stride): C of the query tile
+  T* sB = sC + kTile * stride;                            // (kTile, stride): B of the key tile
+  float* region = reinterpret_cast<float*>(sB + kTile * stride);
+  float* sX = region;                                     // (kTile, kXStride): x of the group
+  float* sG = sX + kTile * kXStride;                      // (group, kTile, kGStride): G^T[s][t]
+  float* sS = region;                                     // (group, N, P): S_prev of each head
+  const size_t intra = static_cast<size_t>(kTile) * kXStride + kHeadGroup * kTile * kGStride;
+  const size_t inter = static_cast<size_t>(kHeadGroup) * n_state * P;
+  float* sCum = region + (intra > inter ? intra : inter);  // (group, kMaxChunk)
+  __shared__ float sPart[kThreads / 32];
+
+  const int n_tiles = (chunk + kTile - 1) / kTile, n_chunks = (len_total + chunk - 1) / chunk;
+  const int c = blockIdx.x / n_tiles, h0 = blockIdx.y * kHeadGroup, b = blockIdx.z;
+  const int t0 = (n_tiles - 1 - blockIdx.x % n_tiles) * kTile;  // heavy (late) tiles first
+  const int tid = threadIdx.x, g = tid >> 7, lt = tid & 127;
+  const int tx = lt & 15, ty = lt >> 4, hw = lt >> 5;  // hw: the warp within the head
+  const int h = h0 + g;
+  const int c0 = c * chunk, len = min(chunk, len_total - c0);
+  if (t0 >= len) return;  // the ragged last chunk has fewer query tiles
+  const size_t row0 = static_cast<size_t>(b) * len_total + c0;
+  const size_t x_stride = static_cast<size_t>(heads) * P;
+  const int group = min(heads - h0, kHeadGroup);  // heads of this block
+  const float* cum = sCum + g * kMaxChunk;
+
+#pragma unroll
+  for (int k = 0; k < kHeadGroup; ++k)
+    sCum[k * kMaxChunk + tid] = chunk_cumsum(dt, a_neg, row0, len, heads, h0 + k, sPart);
+
+  {
+    const int tlen = min(kTile, len - t0);
+    __syncthreads();  // sCum is written
+    load_tile<kTile>(sC, stride, cmat + (row0 + t0) * n_state, n_state, tlen, n_state, n_pad);
+
+    float acc[8][TN];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[r][j] = 0.f;
+
+    for (int s0 = 0; s0 <= t0; s0 += kTile) {
+      const int slen = min(kTile, len - s0);
+      __syncthreads();  // the last key tile's readers of sB, sX and sG are done
+      load_tile<kTile>(sB, stride, bmat + (row0 + s0) * n_state, n_state, slen, n_state, n_pad);
+      load_tile<kTile>(sX, kXStride, xb + (row0 + s0) * x_stride + static_cast<size_t>(h0) * P,
+                       x_stride, slen, group * P, GP);
+      __syncthreads();
+
+      // G^T[s][t] = C_t . B_s exp(cum_t - cum_s) for s <= t, else 0, per head
+      float cb[16];
+      int tb, sb;
+      cb_tile(cb, tb, sb, sC, sB, stride, n_pad);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int tl = tb + cb_dt<T>(i), sl = sb + cb_ds<T>(i);
+        const int t = t0 + tl, s = s0 + sl;
+#pragma unroll
+        for (int k = 0; k < kHeadGroup; ++k) {
+          const float* ck = sCum + k * kMaxChunk;
+          sG[(k * kTile + sl) * kGStride + tl] = s <= t ? cb[i] * decay_exp<T>(ck[t] - ck[s]) : 0.f;
+        }
+      }
+      __syncthreads();
+
+      // y[t][p] += sum_s G^T[s][t] x[s][p]; on the diagonal tile a warp's
+      // rows (16 hw .. 16 hw + 15) see keys up to their last row only
+      const int s_end = s0 == t0 ? min(slen, 16 * hw + 16) : slen;
+      const float* gk = sG + g * kTile * kGStride + ty * 8;
+      const float* xk = sX + g * P + tx * TN;
+#pragma unroll 4
+      for (int s = 0; s < s_end; ++s) {
+        float gv[8], xv[TN];
+        lds<8>(gv, gk + s * kGStride);
+        lds<TN>(xv, xk + s * kXStride);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(gv[r], xv[j], acc[r][j]);
+      }
+    }
+
+    // inter-chunk term: y_t += exp(cum_t) C_t . S_prev (no state enters chunk 0)
+    if (c > 0) {
+      __syncthreads();  // readers of the region (sX, sG) are done
+      const float* src = states + ((static_cast<size_t>(b) * n_chunks + c) * heads + h0) *
+                                      n_state * P;  // the group's heads are adjacent
+      for (int i = 4 * tid; i < group * n_state * P; i += 4 * kThreads)
+        *reinterpret_cast<float4*>(sS + i) = *reinterpret_cast<const float4*>(src + i);
+      __syncthreads();
+      float cs[8][TN];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) cs[r][j] = 0.f;
+      const float* sk = sS + g * n_state * P + tx * TN;
+      for (int n = 0; n < n_state; n += 4) {
+        float sv[4][TN];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) lds<TN>(sv[k], sk + (n + k) * P);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float cv[4];
+          lds4(cv, sC + (ty * 8 + r) * stride + n);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) cs[r][j] = fmaf(cv[k], sv[k][j], cs[r][j]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float e = decay_exp<T>(cum[t0 + ty * 8 + r]);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(e, cs[r][j], acc[r][j]);
+      }
+    }
+
+    if (h < heads) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int t = ty * 8 + r;
+        if (t < tlen) {
+          store_row<TN>(y + (row0 + t0 + t) * x_stride + static_cast<size_t>(h) * P + tx * TN,
+                        acc[r]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *xb, *dt, *a_neg, *bmat, *cmat;
+  void *y, *state, *states, *decay;
+  int batch, len, heads, n_state, chunk, n_chunks;
+  cudaStream_t stream;
+};
+
+template <typename T, int TN, int RN>
+int launch_chunk_state(const Args& a) {
+  ssd_chunk_state<T, TN, RN><<<dim3(a.n_chunks, a.heads, a.batch), kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.xb), static_cast<const float*>(a.dt),
+      static_cast<const float*>(a.a_neg), static_cast<const T*>(a.bmat),
+      static_cast<float*>(a.states), static_cast<float*>(a.decay), a.len, a.heads, a.n_state,
+      a.chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int TN>
-int launch(const void* xb, const void* dt, const void* a_neg, const void* bmat,
-           const void* cmat, void* y, void* state, int batch, int len, int heads,
-           int n_state, int chunk, cudaStream_t stream) {
-  const size_t smem = smem_floats(n_state, 16 * TN) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T, TN>,
+int launch(const Args& a) {
+  constexpr int P = 16 * TN;
+  int err;
+  if (a.n_state <= 16) err = launch_chunk_state<T, TN, 1>(a);
+  else if (a.n_state <= 32) err = launch_chunk_state<T, TN, 2>(a);
+  else if (a.n_state <= 64) err = launch_chunk_state<T, TN, 4>(a);
+  else err = launch_chunk_state<T, TN, 8>(a);
+  if (err) return err;
+
+  const int np = a.n_state * P;
+  ssd_state_pass<<<dim3((np + 4 * kThreads - 1) / (4 * kThreads), a.heads, a.batch), kThreads, 0,
+                   a.stream>>>(static_cast<float*>(a.states), static_cast<const float*>(a.decay),
+                               static_cast<float*>(a.state), a.n_chunks, a.heads, np);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+
+  static bool attribute_set = false;  // once per process and instance, for the largest N
+  if (!attribute_set) {
+    cudaError_t e = cudaFuncSetAttribute(ssd_output<T, TN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<T, TN><<<dim3(heads, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(xb), static_cast<const float*>(dt),
-      static_cast<const float*>(a_neg), static_cast<const T*>(bmat),
-      static_cast<const T*>(cmat), static_cast<T*>(y), static_cast<float*>(state), len, heads,
-      n_state, chunk);
+                                         static_cast<int>(output_smem_bytes<T, P>(kMaxN)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attribute_set = true;
+  }
+  const size_t smem = output_smem_bytes<T, P>(a.n_state);
+  const dim3 grid(a.n_chunks * ((a.chunk + kTile - 1) / kTile),
+                  (a.heads + kHeadGroup - 1) / kHeadGroup, a.batch);
+  ssd_output<T, TN><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.xb), static_cast<const float*>(a.dt),
+      static_cast<const float*>(a.a_neg), static_cast<const T*>(a.bmat),
+      static_cast<const T*>(a.cmat), static_cast<const float*>(a.states), static_cast<T*>(a.y),
+      a.len, a.heads, a.n_state, a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int head_dim, const void* xb, const void* dt, const void* a_neg,
-             const void* bmat, const void* cmat, void* y, void* state, int batch, int len,
-             int heads, int n_state, int chunk, cudaStream_t stream) {
+int dispatch(int head_dim, const Args& a) {
   switch (head_dim) {
-    case 16:
-      return launch<T, 1>(xb, dt, a_neg, bmat, cmat, y, state, batch, len, heads, n_state,
-                          chunk, stream);
-    case 32:
-      return launch<T, 2>(xb, dt, a_neg, bmat, cmat, y, state, batch, len, heads, n_state,
-                          chunk, stream);
-    case 64:
-      return launch<T, 4>(xb, dt, a_neg, bmat, cmat, y, state, batch, len, heads, n_state,
-                          chunk, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<T, 1>(a);
+    case 32: return launch<T, 2>(a);
+    case 64: return launch<T, 4>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -346,22 +650,26 @@ int dispatch(int head_dim, const void* xb, const void* dt, const void* a_neg,
 
 // xb (batch, len, heads, head_dim), bmat/cmat (batch, len, n_state): contiguous,
 // bf16 if is_bf16 else fp32; dt (batch, len, heads) and a_neg (heads,) fp32.
-// Writes y like xb and state (batch, heads, n_state, head_dim) fp32. chunk is
-// the reference's min(chunk, len), 1..256; head_dim 16, 32 or 64; n_state
-// 1..128. Launches on `stream` and returns the cudaError_t of the launch (0
-// on success); it does not synchronise.
+// Writes y like xb and state (batch, heads, n_state, head_dim) fp32, using
+// the caller's scratch states (batch, n_chunks, heads, n_state, head_dim)
+// and decay (batch, n_chunks, heads), both fp32. chunk is the reference's
+// min(chunk, len), 1..256, n_chunks = ceil(len / chunk); head_dim
+// 16, 32 or 64; n_state a multiple of 8 up to 128. Issues three launches
+// on `stream` and returns the first failing cudaError_t (0 on success); it
+// does not synchronise.
 extern "C" int ssd_scan_forward(const void* xb, const void* dt, const void* a_neg,
                                 const void* bmat, const void* cmat, void* y, void* state,
-                                int batch, int len, int heads, int head_dim, int n_state,
-                                int chunk, int is_bf16, void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk || n_state < 1 || n_state > kMaxN || len < 1)
+                                void* states, void* decay, int batch, int len, int heads,
+                                int head_dim, int n_state, int chunk, int n_chunks,
+                                int is_bf16, void* stream) {
+  if (chunk < 1 || chunk > kMaxChunk || n_state < 8 || n_state > kMaxN || n_state % 8 ||
+      len < 1 || batch < 1 || heads < 1 || n_chunks != (len + chunk - 1) / chunk ||
+      batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(head_dim, xb, dt, a_neg, bmat, cmat, y, state, batch, len,
-                                   heads, n_state, chunk, st);
-  return dispatch<float>(head_dim, xb, dt, a_neg, bmat, cmat, y, state, batch, len, heads,
-                         n_state, chunk, st);
+  const Args a{xb, dt, a_neg, bmat, cmat, y, state, states, decay,
+               batch, len, heads, n_state, chunk, n_chunks, static_cast<cudaStream_t>(stream)};
+  if (is_bf16) return dispatch<__nv_bfloat16>(head_dim, a);
+  return dispatch<float>(head_dim, a);
 }
 
 extern "C" const char* ssd_scan_error_string(int err) {

@@ -17,19 +17,24 @@ from repro_torch.kernels import ssd_scan as ssd
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Model layout: q (B,Sq,H,hd), k/v (B,Sk,H,hd) (pre-expanded GQA)."""
-    b, sq, h, hd = q.shape
-    sk = k.shape[1]
-    qf = q.transpose(1, 2).reshape(b * h, sq, hd)
-    kf = k.transpose(1, 2).reshape(b * h, sk, hd)
-    vf = v.transpose(1, 2).reshape(b * h, sk, hd)
+    """Model layout: q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with KV dividing H
+    (grouped K/V, or pre-expanded with KV = H as the reference takes them).
+
+    On the card the kernel reads these tensors as they are: no transpose,
+    no copy and no expansion of K/V. On the CPU, K/V are expanded to H
+    heads and ``attention_ref`` runs in the (BH, S, hd) layout.
+    """
     if q.is_cuda:
-        o = fa.flash_attention_bhsd(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                                    causal=causal)
-    elif q.device.type == "cpu":
-        o = ref_lib.attention_ref(qf, kf, vf, causal)
-    else:
+        return fa.flash_attention_bshd(q, k, v, causal=causal)
+    if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    if h % kv:
+        raise ValueError(f"{kv} KV heads do not divide {h} query heads")
+    k, v = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
+    qf, kf, vf = (t.transpose(1, 2).reshape(b * h, -1, hd) for t in (q, k, v))
+    o = ref_lib.attention_ref(qf, kf, vf, causal)
     return o.reshape(b, h, sq, hd).transpose(1, 2)
 
 

@@ -4,9 +4,10 @@ decode paths.
 Port of ``repro.models.attention`` (self-attention only; cross-attention
 arrives with the VLM and encoder-decoder slice). Projection kernels keep the
 reference's flattened layout, ``wq (D, H*hd)``, ``wk/wv (D, KV*hd)``,
-``wo (H*hd, D)``; activations are reshaped to (B,S,H,hd), and GQA K/V are
-broadcast to the full head count for the full-sequence path while the cache
-stores only the KV heads.
+``wo (H*hd, D)``; activations are reshaped to (B,S,H,hd). The causal path
+hands GQA K/V with their KV heads to the kernel, which reads them grouped;
+the plain path broadcasts them to the full head count. The cache stores only
+the KV heads.
 
 The full-sequence causal path runs through either the plain PyTorch
 implementation (the reference's ``"xla"``) or the hand-written CUDA
@@ -88,12 +89,11 @@ def _out_proj(p, ctx, dtype):
     return ctx.reshape(b, s, -1) @ p["wo"].to(dtype)
 
 
-def _expand_kv(cfg, k):
+def _expand_kv(k, h: int):
     """(B,S,KV,hd) -> (B,S,H,hd) by broadcasting each KV head over its group."""
-    h, kv, hd = _heads(cfg)
+    b, s, kv, hd = k.shape
     if kv == h:
         return k
-    b, s = k.shape[:2]
     return k[:, :, :, None, :].expand(b, s, kv, h // kv, hd).reshape(b, s, h, hd)
 
 
@@ -150,9 +150,12 @@ def _use_kernel(q) -> bool:
 
 
 def causal_attention(q, k, v):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with KV dividing H. The kernel reads
+    grouped K/V as they are; the plain path expands them to H heads first."""
     if _use_kernel(q):
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True)
+    k, v = (_expand_kv(t, q.shape[2]) for t in (k, v))
     sq, sk = q.shape[1], k.shape[1]
     if sq > CHUNK_THRESHOLD and sq % CHUNK_Q == 0:
         return _chunked_causal_attention(q, k, v, CHUNK_Q)
@@ -182,12 +185,10 @@ def apply_self_attn(p, cfg, x, positions, causal=True):
     k, v = _project_kv(p, cfg, x, x.dtype)
     q = _apply_rope(cfg, q, positions)
     k = _apply_rope(cfg, k, positions)
-    kf = _expand_kv(cfg, k)
-    vf = _expand_kv(cfg, v)
     if causal:
-        ctx = causal_attention(q, kf, vf)
+        ctx = causal_attention(q, k, v)  # expands K/V only on the plain path
     else:
-        ctx = dot_attention(q, kf, vf)
+        ctx = dot_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads))
     return _out_proj(p, ctx, x.dtype), (k, v)
 
 

@@ -72,7 +72,7 @@ def test_causal_attention_chunked_path(monkeypatch):
 def test_expand_kv():
     cfg = _cfg()
     k = both(randn(10, (2, 5, cfg.num_kv_heads, 16)))
-    close(TA._expand_kv(cfg, k[1]), JA._expand_kv(cfg, k[0]), 0)
+    close(TA._expand_kv(k[1], cfg.num_heads), JA._expand_kv(cfg, k[0]), 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -87,6 +87,46 @@ def test_apply_self_attn(dtype, causal):
     close(yt, yj, TOL[dtype])
     close(kt, kj, TOL[dtype])
     close(vt, vj, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_apply_self_attn_through_kernel_wrapper(dtype, monkeypatch):
+    # the kernel path: causal_attention hands grouped K/V (2 KV heads of 4)
+    # to kernels.ops.flash_attention unexpanded; on the CPU that wrapper
+    # expands them and runs attention_ref. The reference runs its Pallas
+    # kernel in interpret mode on its pre-expanded K/V.
+    cfg = _cfg()
+    assert cfg.num_kv_heads < cfg.num_heads
+    pj, pt = _split(_attn_params(cfg, 40), dtype)
+    x = both(randn(41, (2, 13, cfg.d_model)), dtype)
+    pos = np.arange(13, dtype=np.int32)[None, :]
+    from repro_torch.kernels import ops as kops
+    seen = []
+    real = kops.flash_attention
+    monkeypatch.setattr(TA, "_use_kernel", lambda q: True)
+    monkeypatch.setattr(kops, "flash_attention",
+                        lambda q, k, v, causal=True: seen.append(k.shape) or real(q, k, v, causal))
+    yt, _ = TA.apply_self_attn(pt, torch_cfg(cfg), x[1], torch.from_numpy(pos))
+    assert seen == [(2, 13, cfg.num_kv_heads, cfg.resolved_head_dim)]
+    impl = JA.get_attention_impl()
+    try:
+        JA.set_attention_impl("pallas_interpret")
+        yj, _ = JA.apply_self_attn(pj, cfg, x[0], jnp.asarray(pos), causal=True)
+    finally:
+        JA.set_attention_impl(impl)
+    close(yt, yj, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_causal_attention_plain_expands_grouped_kv(dtype):
+    # the plain path takes grouped K/V too and matches the pre-expanded call
+    q = both(randn(42, (2, 21, 6, 16)), dtype)
+    k, v = (both(randn(s, (2, 21, 2, 16)), dtype) for s in (43, 44))
+    kx, vx = (t[1].repeat_interleave(3, dim=2) for t in (k, v))
+    assert torch.equal(TA.causal_attention(q[1], k[1], v[1]), TA.causal_attention(q[1], kx, vx))
+    close(TA.causal_attention(q[1], k[1], v[1]),
+          JA.causal_attention(q[0], jnp.repeat(k[0], 3, axis=2), jnp.repeat(v[0], 3, axis=2)),
+          TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -120,6 +120,28 @@ def test_ssd_library_is_named_by_source_hash():
     assert path != fa.LIBRARY.path()
 
 
+@pytest.mark.parametrize("b,l,h,p,n,chunk,nc,q", [
+    (8, 2081, 32, 64, 128, 256, 9, 256),   # mamba2-370m's serving prefill: 8 chunks + 33 rows
+    (2, 1, 4, 32, 16, 64, 1, 1),           # L = 1: one chunk of one row
+    (2, 257, 4, 32, 16, 256, 2, 256),      # L = chunk + 1
+    (1, 512, 5, 16, 8, 256, 2, 256),       # heads not divisible by the group
+    (2, 300, 4, 64, 16, 64, 5, 64),        # jamba's N and chunk, ragged
+])
+def test_ssd_plan(b, l, h, p, n, chunk, nc, q):
+    pl = ssd.plan(b, l, h, p, n, chunk)
+    assert (pl.chunk, pl.n_chunks) == (q, nc)
+    assert (pl.n_chunks - 1) * pl.chunk < l <= pl.n_chunks * pl.chunk  # last chunk ragged
+    assert pl.states_shape == (b, nc, h, n, p) and pl.decay_shape == (b, nc, h)
+
+
+def test_ssd_plan_scratch_at_the_serving_shape():
+    # the serving prefill's chunk states are the 75 MB of fp32 scratch the
+    # wrapper allocates, one (N, P) state per (batch, chunk, head)
+    pl = ssd.plan(8, 2081, 32, 64, 128, 256)
+    assert 4 * np.prod(pl.states_shape) == 8 * 9 * 32 * 128 * 64 * 4 == 75_497_472
+    assert 4 * np.prod(pl.decay_shape) == 8 * 9 * 32 * 4
+
+
 def test_rmsnorm_wrappers_refuse_cpu_tensors():
     x, g = torch.zeros(4, 64), torch.ones(64)
     before = (rn.fwd_launches, rn.bwd_launches)
@@ -196,6 +218,47 @@ def test_model_layout_wrapper_launches_on_card(cuda):
                                atol=KTOL["bfloat16"], rtol=KTOL["bfloat16"])
 
 
+def _expand(t, h):
+    """(B, S, KV, d) -> (B, S, H, d), head h reading KV head h // (H // KV)."""
+    return t.repeat_interleave(h // t.shape[2], dim=2)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd", [
+    (8, 2081, 2081, 14, 2, 64),                 # qwen2-0.5b's serving prefill
+    (2, 77, 77, 14, 2, 64), (2, 130, 130, 6, 2, 32), (1, 200, 200, 4, 1, 16),
+    (2, 129, 129, 8, 4, 128), (3, 1, 1, 4, 2, 64),
+    (2, 50, 130, 6, 3, 64), (2, 130, 50, 4, 2, 128), (1, 300, 257, 2, 2, 16),  # Sq != Sk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_layout_gqa_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, hd, dtype,
+                                                        causal):
+    # q (B, Sq, H, d) and grouped k/v (B, Sk, KV, d) read as they are
+    q = _randn(11, (b, sq, h, hd)).to(cuda).to(getattr(torch, dtype))
+    k, v = (_randn(s, (b, sk, kv, hd)).to(cuda).to(q.dtype) for s in (12, 13))
+    before = fa.launches
+    got = fa.flash_attention_bshd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == q.shape and got.dtype == q.dtype
+    ke, ve = _expand(k, h), _expand(v, h)
+    flat = [t.transpose(1, 2).reshape(b * h, -1, hd) for t in (q, ke, ve)]
+    want = attention_ref(*flat, causal).reshape(b, h, sq, hd).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=KTOL[dtype], rtol=KTOL[dtype])
+
+
+def test_gqa_wrapper_makes_no_copies_on_card(cuda):
+    # the model-layout wrapper launches the kernel once and issues no other op
+    q = _randn(1, (2, 64, 14, 64)).to(cuda).bfloat16()
+    k, v = (_randn(s, (2, 64, 2, 64)).to(cuda).bfloat16() for s in (2, 3))
+    ops.flash_attention(q, k, v)  # build and load outside the profile
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ops.flash_attention(q, k, v)
+    ops_run = {e.key for e in prof.key_averages() if e.key.startswith("aten::")}
+    assert ops_run <= {"aten::empty_like", "aten::empty_strided", "aten::empty"}, ops_run
+
+
 # the reference's SSD kernel tolerance (tests/test_kernels.py), for y in fp32
 # and the fp32 final state; bf16 y against the fp32 plain result cast to bf16
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -208,6 +271,8 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
     (2, 2081, 8, 64, 128, 256, False),                             # ragged L
     (2, 2081, 8, 64, 128, 256, True), (2, 512, 32, 64, 128, 256, True),  # mamba2's N, P, chunk
     (2, 300, 4, 64, 16, 64, True),                                 # jamba's N and chunk
+    (1, 257, 5, 64, 128, 256, False), (2, 33, 3, 16, 8, 32, True),  # odd heads, L = chunk + 1
+    (8, 2081, 32, 64, 128, 256, True),                             # the serving shape, slow
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain_on_card(cuda, b, l, h, p, n, chunk, slow, dtype):

@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from _torch_parity import both, close, randn  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -41,3 +43,44 @@ def test_attention_ref_matches_reference_oracle(sq, sk, causal):
     k, v = (both(randn(seed, (3, sk, 16))) for seed in (5, 6))
     close(tref.attention_ref(q[1], k[1], v[1], causal),
           jref.attention_ref(q[0], k[0], v[0], causal), 1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 37, 6, 2, 32), (1, 40, 4, 1, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_wrapper_matches_pallas_interpret(b, s, h, kv, hd, dtype, causal):
+    # grouped K/V (KV < H heads) into the port's wrapper; the reference's
+    # kernel takes them expanded, head h reading KV head h // (H // KV)
+    q = both(randn(21, (b, s, h, hd)), dtype)
+    k, v = (both(randn(seed, (b, s, kv, hd)), dtype) for seed in (22, 23))
+    kj, vj = (jnp.repeat(t[0], h // kv, axis=2) for t in (k, v))
+    want = jops.flash_attention(q[0], kj, vj, causal=causal, interpret=True)
+    got = tops.flash_attention(q[1], k[1], v[1], causal=causal)
+    assert got.shape == (b, s, h, hd) and got.dtype == q[1].dtype
+    close(got, want, KTOL[dtype])
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, to follow the wrapper's
+    card path without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_wrapper_hands_model_layout_to_kernel_unchanged(monkeypatch):
+    # on the card the wrapper passes q (B,S,H,d) and grouped k/v (B,S,KV,d)
+    # to the kernel as they are: the same storage and strides, no copy
+    seen = []
+    monkeypatch.setattr(tops.fa, "flash_attention_bshd",
+                        lambda q, k, v, causal=True: seen.append((q, k, v, causal)) or q)
+    q = torch.zeros(2, 9, 14, 64, dtype=torch.bfloat16).as_subclass(_OnCard)
+    k, v = (torch.zeros(2, 9, 2, 64, dtype=torch.bfloat16).as_subclass(_OnCard)
+            for _ in range(2))
+    tops.flash_attention(q, k, v, causal=True)
+    assert len(seen) == 1
+    for got, given in zip(seen[0][:3], (q, k, v)):
+        assert got is given
+        assert got.data_ptr() == given.data_ptr() and got.stride() == given.stride()
+    assert seen[0][3] is True
