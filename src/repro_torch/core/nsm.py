@@ -60,12 +60,22 @@ _CANON = {
     "maximum": "max", "clamp_min": "max", "minimum": "min", "clamp_max": "min",
     "sigmoid": "logistic",
     "rsub": "sub", "reciprocal": "div",
+    "bitwise_and": "and", "logical_and": "and",
+    # the zoo's ReLU and pooling: jax.nn.relu is a maximum with 0; a max pool
+    # is a reduce_window_max, whose transpose scatters to the window's argmax
+    "relu": "max",
+    "max_pool2d_with_indices": "reduce_window_max",
+    "max_pool2d_with_indices_backward": "select_and_scatter_add",
     "clone": "identity", "copy": "identity", "copy_": "identity",
 }
 
 # aten ops that are a chain of primitives in the reference: ``x[:, 0]`` is
-# a slice and a reshape, a mean a sum and a division
-_CHAIN = {"select": ("slice", "reshape"), "mean": ("reduce_sum", "div")}
+# a slice and a reshape, a mean a sum and a division, an average pool a
+# window sum and a division, and its transpose a division, the cotangent
+# padded to the input's extent and a window sum
+_CHAIN = {"select": ("slice", "reshape"), "mean": ("reduce_sum", "div"),
+          "avg_pool2d": ("reduce_window_sum", "div"),
+          "avg_pool2d_backward": ("div", "pad", "reduce_window_sum")}
 
 # No operator of their own in the reference's jaxpr: ``detach`` and
 # ``alias`` are autograd's bookkeeping of saved tensors; ``t`` is how
@@ -152,6 +162,36 @@ def _tanh_backward(dy, y):
     return g + g * y
 
 
+def _relu_backward(dy, y, threshold):
+    # jax.nn.relu's derivative: select(x > 0, g, 0)
+    return torch.where(y > threshold, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
+
+
+def _hardtanh(x, min_val=-1.0, max_val=1.0):
+    return torch.clamp(x, min_val, max_val)  # jax.nn.relu6: max, then min
+
+
+def _hardtanh_backward(dy, x, min_val, max_val):
+    # jax.nn.relu6's derivative: select((x > 0) & (x < 6), g, 0)
+    keep = torch.logical_and(x > min_val, x < max_val)
+    return torch.where(keep, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
+
+
+def _sigmoid_backward(dy, y):
+    return dy * (y * (1 - y))  # lax.logistic's derivative
+
+
+def _var(x, dim=None, *, correction=None, keepdim=False):
+    # jnp.var: centred on the mean, squared, summed, divided by N - ddof
+    dims = range(x.dim()) if dim is None else dim
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    centred = x - x.mean(dim, keepdim=True)
+    ddof = 1 if correction is None else correction
+    return torch.sum(centred.square(), dim, keepdim=keepdim) / (n - ddof)
+
+
 def _logsumexp(x, dim, keepdim=False):
     # jax.nn.logsumexp: the max held out of the gradient
     m = torch.amax(x, dim, keepdim=True).detach()
@@ -172,6 +212,9 @@ _DECOMPOSE = {
     _aten.softplus.default: _softplus, _aten.softplus_backward.default: _softplus_backward,
     _aten.tanh_backward.default: _tanh_backward, _aten.logsumexp.default: _logsumexp,
     _aten.tril.default: _tril,
+    _aten.threshold_backward.default: _relu_backward,
+    _aten.hardtanh.default: _hardtanh, _aten.hardtanh_backward.default: _hardtanh_backward,
+    _aten.sigmoid_backward.default: _sigmoid_backward, _aten.var.correction: _var,
 }
 
 

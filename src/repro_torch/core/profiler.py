@@ -1,26 +1,31 @@
-"""Profiling harness (paper §2): measure (time, memory) for LM train steps.
+"""Profiling harness (paper §2): measure (time, memory) for train steps.
 
-Port of the LM part of ``repro.core.profiler``. For every configuration we
-build the real training step (model forward + CE loss + backward + AdamW
-update, ``repro_torch.train.step``), then record:
+Port of ``repro.core.profiler``. For every configuration we build the real
+training step (model forward + CE loss + backward + optimizer update: the
+LMs' AdamW step, ``repro_torch.train.step``, or a zoo CNN's step with one of
+the rig's four optimizers, ``zoo_train_step``), then record:
 
   time_s     — median of ``steps`` step times on the card, by CUDA events,
                after one warm-up step;
   mem_bytes  — the torch allocator's peak on the card over those steps
                (``torch.cuda.max_memory_allocated`` after a reset): the
-               state, the step's outputs and its activations;
+               state, the step's outputs, its activations and the cuDNN
+               workspaces taken through the caching allocator;
   flops      — ``torch.utils.flop_counter.FlopCounterMode`` over the step's
                aten graph (matrix products and convolutions, forward,
                backward and remat recompute), in place of the reference's
-               HLO analysis, which also charges elementwise ops;
+               HLO analysis, which also charges elementwise ops. A
+               convolution's weight gradient is charged as one forward
+               (``_conv_backward_flop``): torch's own formula charges a
+               grouped convolution's ``groups`` times over;
   nsm_edges  — NSM of the same graph (``repro_torch.core.nsm``).
 
 The graph is traced by ``make_fx`` on fake tensors, with every kernel pinned
 plain, so FLOPs and the NSM need no card. Time and memory come only from
 the card: a measurement on the CPU raises rather than return a number that
 is not the card's. As in the reference, the timed steps run on an all-zero
-state and batch. The CNN zoo's profiling (``make_optimizer``,
-``zoo_train_step``, ``profile_zoo``) comes with ROADMAP Queue A item 12.
+state and batch. ``profile_zoo`` profiles one of the 29 zoo CNNs
+(``repro_torch.core.zoo``) this way, ``profile_lm`` one LM.
 """
 
 from __future__ import annotations
@@ -31,14 +36,84 @@ from typing import Dict
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._pytree import tree_leaves, tree_map
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 
 from repro_torch.core import nsm as nsm_lib
 from repro_torch.core.features import PLATFORM_TORCH_CUDA, ProfileRecord
+from repro_torch.core.zoo import ZooModel, build_zoo_model
+
+Tensors = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# Tiny optimizers for the profiling rig (the paper varies the optimizer)
+# ---------------------------------------------------------------------------
+
+
+def make_optimizer(kind: str, lr: float):
+    """(init, update) of one of the rig's optimizers over ``{name: tensor}``,
+    as the reference's: ``update(g, s, p) -> (new params, new state)``,
+    nothing updated in place."""
+    if kind == "sgd":
+        def init(p):
+            return {}
+
+        def update(g, s, p):
+            return {k: p[k] - lr * g[k] for k in p}, s
+    elif kind == "momentum":
+        def init(p):
+            return {"m": {k: torch.zeros_like(v) for k, v in p.items()}}
+
+        def update(g, s, p):
+            m = {k: 0.9 * s["m"][k] + g[k] for k in p}
+            return {k: p[k] - lr * m[k] for k in p}, {"m": m}
+    elif kind in ("adam", "adamw"):
+        def init(p):
+            return {"m": {k: torch.zeros_like(v) for k, v in p.items()},
+                    "v": {k: torch.zeros_like(v) for k, v in p.items()},
+                    "t": torch.zeros((), dtype=torch.int32, device=next(iter(p.values())).device)}
+
+        def update(g, s, p):
+            t = s["t"] + 1
+            m = {k: 0.9 * s["m"][k] + 0.1 * g[k] for k in p}
+            v = {k: 0.999 * s["v"][k] + 0.001 * g[k] * g[k] for k in p}
+            tf = t.to(torch.float32)
+
+            def upd(pp, mm, vv):
+                mh = mm / (1 - torch.pow(0.9, tf))
+                vh = vv / (1 - torch.pow(0.999, tf))
+                step = mh / (torch.sqrt(vh) + 1e-8)
+                if kind == "adamw":
+                    step = step + 0.01 * pp
+                return pp - lr * step
+            return {k: upd(p[k], m[k], v[k]) for k in p}, {"m": m, "v": v, "t": t}
+    else:
+        raise ValueError(kind)
+    return init, update
+
+
+def _softmax_ce(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return torch.mean(lse - gold)
 
 # ---------------------------------------------------------------------------
 # Generic step profiling
 # ---------------------------------------------------------------------------
+
+
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation,
+                        transposed, _output_padding, _groups, output_mask, out_shape, **kwargs):
+    """FLOPs of ``aten.convolution_backward``: the input gradient as a
+    transposed convolution (torch's formula) and the weight gradient as one
+    forward of the convolution, the products it makes. torch's formula
+    convolves the input's channels as a batch against ``grad_out`` and so
+    charges a grouped convolution's weight gradient ``groups`` times."""
+    flops = 0
+    if output_mask[0]:
+        flops += conv_flop_count(grad_out_shape, w_shape, out_shape[0], not transposed)
+    if output_mask[1]:
+        flops += conv_flop_count(x_shape, w_shape, grad_out_shape, transposed)
+    return flops
 
 
 def trace_step(step_fn, args, device="cpu") -> Dict:
@@ -49,7 +124,8 @@ def trace_step(step_fn, args, device="cpu") -> Dict:
     with fake_mode:
         fake = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device=device), args)
     gm = nsm_lib.trace(step_fn, *fake)
-    with fake_mode, FlopCounterMode(display=False) as counter:
+    mapping = {torch.ops.aten.convolution_backward: _conv_backward_flop}
+    with fake_mode, FlopCounterMode(display=False, custom_mapping=mapping) as counter:
         gm(*fake)
     return {"flops": float(counter.get_total_flops()), "nsm_edges": nsm_lib.nsm_edges(gm)}
 
@@ -94,6 +170,66 @@ def measure_step(step_fn, args, steps: int = 3, device="cuda") -> Dict:
 def profile_step(step_fn, args, steps: int = 3, device="cuda") -> Dict:
     """Trace and measure ``step_fn(*args)``: the reference's ``profile_step``."""
     return {**trace_step(step_fn, args, device), **measure_step(step_fn, args, steps, device)}
+
+
+# ---------------------------------------------------------------------------
+# Zoo (CNN) profiling
+# ---------------------------------------------------------------------------
+
+
+def zoo_train_step(model: ZooModel, optimizer: str, lr: float):
+    """``(step, init_opt)``: ``step(params, opt_state, x, y)`` takes the loss's
+    gradients by autograd and returns the optimizer's ``(params, state)``;
+    ``x`` is an NCHW float32 batch, ``y`` int64 labels."""
+    init_opt, update = make_optimizer(optimizer, lr)
+
+    @torch.no_grad()
+    def step(params: Tensors, opt_state, x, y):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            loss = _softmax_ce(model.apply(leaves, x), y)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return update(dict(zip(params, grads)), opt_state, params)
+
+    return step, init_opt
+
+
+def zoo_record(model: ZooModel, batch: int, image: int, *, flops, nsm_edges,
+               lr: float = 0.1, optimizer: str = "sgd", epoch: int = 1,
+               time_s: float = 0.0, mem_bytes: float = 0.0, family: str = "cnn",
+               platform: int = PLATFORM_TORCH_CUDA) -> ProfileRecord:
+    """The canonical ZooModel -> ProfileRecord field mapping."""
+    return ProfileRecord(
+        model_name=model.name, family=family, batch_size=batch, input_size=image,
+        channels=model.cin, learning_rate=lr, epoch=epoch,
+        optimizer=optimizer, layers=model.layer_count(), flops=flops,
+        params=model.param_count(), nsm_edges=nsm_edges,
+        time_s=time_s, mem_bytes=mem_bytes, platform=platform)
+
+
+def profile_zoo_model(model: ZooModel, batch: int = 16, image: int = 32, lr: float = 0.1,
+                      optimizer: str = "sgd", epoch: int = 1, steps: int = 3,
+                      family: str = "cnn", platform: int = PLATFORM_TORCH_CUDA,
+                      device="cuda") -> ProfileRecord:
+    """Profile one train step of a built zoo (or random) CNN on the card."""
+    step, init_opt = zoo_train_step(model, optimizer, lr)
+    params = model.param_shapes()
+    x = torch.empty((batch, model.cin, image, image), device="meta")
+    y = torch.empty((batch,), dtype=torch.int64, device="meta")
+    meas = profile_step(step, (params, init_opt(params), x, y), steps=steps, device=device)
+    return zoo_record(model, batch, image, flops=meas["flops"], nsm_edges=meas["nsm_edges"],
+                      lr=lr, optimizer=optimizer, epoch=epoch, time_s=meas["time_s"],
+                      mem_bytes=meas["mem_bytes"], family=family, platform=platform)
+
+
+def profile_zoo(name: str, batch: int = 16, image: int = 32,
+                channels: int = 3, lr: float = 0.1,
+                optimizer: str = "sgd", epoch: int = 1,
+                steps: int = 3, platform: int = PLATFORM_TORCH_CUDA,
+                device="cuda") -> ProfileRecord:
+    """Profile one train step of the zoo network ``name`` on the card."""
+    return profile_zoo_model(build_zoo_model(name, channels, image), batch, image, lr,
+                             optimizer, epoch, steps, platform=platform, device=device)
 
 
 # ---------------------------------------------------------------------------

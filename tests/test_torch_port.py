@@ -1,6 +1,7 @@
 """The port's boundaries: no JAX inside it (every module imports, and the
-serving, train-step and profiler-trace paths run), the card by default, and
-chip_smoke.py refusing to run without a card or without the repository."""
+serving, train-step, profiler-trace, zoo and predictor paths run), the card
+by default, and chip_smoke.py refusing to run without a card or without the
+repository."""
 
 import os
 import shutil
@@ -49,6 +50,19 @@ def test_port_imports_and_runs_with_jax_blocked():
             tok = torch.zeros(1, 8, dtype=torch.long)
             _, metrics = train(state, {"tokens": tok, "labels": tok})
             assert torch.isfinite(metrics["loss"])
+        from repro_torch.core import profiler, randomgen, zoo
+        from repro_torch.core.automl.models import RidgeRegressor
+        from repro_torch.core.predictor import DNNAbacus
+        recs = []
+        for i, net in enumerate((zoo.build_zoo_model("lenet5"), randomgen.random_cnn(1))):
+            step, init = profiler.zoo_train_step(net, "adam", 0.1)
+            ps = net.param_shapes()
+            x = torch.empty(2, 3, 32, 32, device="meta")
+            y = torch.empty(2, dtype=torch.int64, device="meta")
+            tr = profiler.trace_step(step, (ps, init(ps), x, y))
+            recs.append(profiler.zoo_record(net, 2, 32, time_s=1.0 + i, mem_bytes=2.0 + i, **tr))
+        ab = DNNAbacus().fit(recs * 3, candidate_factory=lambda seed: [RidgeRegressor()])
+        assert (ab.predict(recs)[0] > 0).all()
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                         and sys.modules[m] is not None)
         assert not leaked, leaked
