@@ -58,39 +58,58 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    CNNs' forward, loss and gradients at batch 8 on the card (TF32 off), in
    float64 and in fp32, against the CPU's float64 step (float64 within
    1e-10; fp32 within four times the CPU fp32 step's error or a floor, see
-   ``ZOO_CHECK_FLOOR`` and ``ZOO_CUDNN_ALLOWANCE``), and a zoo step's NSM
-   and FLOPs traced on card tensors against
-   the CPU trace; then the corpus, ``profile_zoo`` on the card over the
-   reference's default grid (``benchmarks/collect.py::zoo_grid``, 76
-   points), ``random_cnn`` seeds 0-11 and phase 10's four ``profile_lm``
-   records, each printed as a JSON line; then DNNAbacus fitted on those
-   records as ``benchmarks/bench_mre.py`` (70/30 split, with the
-   shape-inference and MLP baselines) and ``bench_unseen.py`` (zero-shot on
-   the five unseen nets, NSM and graph embedding) do, its MREs printed as one
-   JSON line, and the phase's wall time.
+   ``ZOO_CHECK_FLOOR`` and ``ZOO_FP32_ALLOWANCE``), with a per-layer check
+   of ``ZOO_LAYER_NETS`` under each cuDNN setting (``zoo_layer_check``), and
+   a zoo step's NSM and FLOPs traced on card tensors against the CPU trace;
+   then the corpus, ``profile_zoo`` on the card over the reference's
+   default grid (``benchmarks/collect.py::zoo_grid``, 76 points),
+   ``random_cnn`` seeds 0-11, phase 10's four ``profile_lm`` records and
+   the LMs of collect.py's lm_grid and random_grid (``LM_GRID_ARCHS``
+   reduced, ``random_lm_config`` of ``RANDOM_LM_SEEDS``), each printed as a
+   JSON line; then DNNAbacus fitted on those records as
+   ``benchmarks/bench_mre.py`` (70/30 split, with the shape-inference and
+   MLP baselines) and ``bench_unseen.py`` (zero-shot on the five unseen
+   nets, NSM and graph embedding) do, its MREs printed as one JSON line,
+   and the phase's wall time. The fits, phase 12's among them, run side by
+   side in spawned worker processes;
+12. the fifth main path, the online query: ``DNNAbacus.service()`` over a
+   predictor fitted on every record but qwen2-0.5b's, asked cold and warm
+   about qwen2-0.5b at phase 10's points and chatglm3-6b, phi4-mini-3.8b
+   and qwen2.5-32b at (8, 2048) (one trace a key, identical warm answers at
+   least 10x faster, each qwen2-0.5b record equal to phase 10's but for
+   FLOPs, time and memory), one JSON line a query with both FLOPs counts
+   and, for qwen2-0.5b, the measured time and memory; then chatglm3-6b at
+   full width, fp32 checks as phase 3 and bf16 served as phase 4 through the
+   flash-attention (head_dim 128, 16:1 grouped KV) and RMSNorm kernels, and
+   its prefill's flash call timed beside SDPA and the bound.
 
-Phase 11 runs none of the hand-written kernels (a CNN step has no attention,
-scan or RMSNorm; its launches are counted around the corpus and must be 0):
-its corpus carries phase 10's records, whose steps ran the RMSNorm kernels.
-Nothing in it is caught: a record that fails fails the run.
-Phases 3 and 6 run their plain side with every kernel pinned plain; phases
-4 and 7 count the RMSNorm kernel too (one launch a norm, each prefill and
-each decode step). Any failed check raises, so the script exits nonzero without the final
-line; so it does without a card, or away from the repository's sources.
+Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
+attention, scan or RMSNorm; their launches are counted around the zoo corpus
+and must be 0); its LM records' steps run the RMSNorm kernels, counted
+around each ``profile_lm`` call. Nothing in phases 11 and 12 is caught: a
+record, a query or a kernel that fails fails the run.
+Phases 3, 6 and 12 run their plain side with every kernel pinned plain;
+phases 4, 7 and 12 count the RMSNorm kernel too (one launch a norm, each
+prefill and each decode step). Any failed check raises, so the script exits
+nonzero without the final line; so it does without a card, or away from the
+repository's sources.
 The last lines are a JSON object of kernel results, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # fp32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12
@@ -149,6 +168,13 @@ ZOO_GRID = ([dict(name=n, batch=b, image=32) for n in FAST_NETS for b in (8, 32)
             + [dict(name=n, batch=8, image=24) for n in MID_NETS]
             + [dict(name=n, batch=8, image=32) for n in SLOW_NETS])
 RANDOM_CNN_SEEDS = range(12)  # collect.py's random_grid: batch 8 + 8 * (seed % 3), 32 px
+# collect.py's lm_grid (LM_ARCHS the port builds) and random_grid's rand_lm
+# seeds 0-11 but the MoE draws 7 and 11 (no MoE layer is ported), reduced or
+# drawn in fp32, each profiled at (2, 64) with steps=2
+LM_GRID_ARCHS = ["qwen2-0.5b", "chatglm3-6b", "phi4-mini-3.8b", "mamba2-370m"]
+RANDOM_LM_SEEDS = [0, 1, 2, 3, 4, 5, 6, 8, 9, 10]
+LM_POINT = (2, 64)
+LM_PROFILE_STEPS = 2
 ZOO_PROFILE_STEPS = 2  # collect.py profiles with steps=2
 ZOO_CHECK_BATCH = 8
 # The zoo step on the card against the CPU's float64 step (gradient errors
@@ -160,16 +186,41 @@ ZOO_CHECK_BATCH = 8
 # gradients leave that rule on the card (H100 80GB HBM3, 700 W): alexnet
 # 1.25e-2 against the CPU's 1.2e-6 and vgg19 1.01e-3 against 3.9e-6, both
 # within the rule with cuDNN off; shufflenet_v1 5.13e-3 against 2.5e-6, and
-# 4.4e-3 with cuDNN off too (an open question). Each has a named gradient
-# allowance, and its step is rerun with cuDNN off: held to the rule, or
-# again to the allowance where the second field is False.
+# 4.4e-3 with cuDNN off too. The per-layer check (``zoo_layer_check``) names
+# the op: in each net one BN output, within 1e-5 of the layer's largest
+# output from zero, lands on the other side of zero from the float64 step's,
+# so the ReLU after it passes (or stops) one gradient element that float64
+# stops (or passes); every forward output stays within the rule. The CPU's
+# fp32 step flips other such elements in other nets. cuDNN's deterministic
+# algorithms and fp32 precision "ieee" change no digit. Each net has a named
+# gradient allowance, and its step is rerun with cuDNN off: held to the
+# rule, or again to the allowance where the second field is False.
 ZOO_CHECK_F64_TOL = 1e-10
 ZOO_CHECK_FACTOR = 4.0
 ZOO_CHECK_FLOOR = 2e-5
 ZOO_FP32_ALLOWANCE = {"alexnet": (2e-2, True), "vgg19": (2e-3, True),
                       "shufflenet_v1": (1e-2, False)}
+# Queue C item 1: the per-layer check of these nets' fp32 step on the card
+# under each cuDNN setting: (cuDNN on, deterministic algorithms, fp32
+# precision "ieee" set explicitly)
+ZOO_LAYER_NETS = ("alexnet", "vgg19", "shufflenet_v1")
+ZOO_LAYER_SETTINGS = {"cudnn": (True, False, False),
+                      "cudnn deterministic": (True, True, False),
+                      "cudnn, fp32_precision ieee": (True, False, True),
+                      "cudnn off": (False, False, False)}
 IN_SAMPLE_MRE_MAX = 1.0  # the reference's tests/test_system.py bound
 
+# phase 12: the online query. The service's predictor never sees qwen2-0.5b,
+# whose phase 10 records are the truth for its answers at PROFILE_POINTS; the
+# three dense configs are asked about at (8, 2048) at full width. Warm
+# queries must be 10x faster than cold at the median, the reference's target
+# (benchmarks/bench_service.py). chatglm3-6b is then served through the
+# flash-attention (head_dim 128, 16:1 grouped KV) and RMSNorm kernels.
+SERVICE_UNSEEN = "qwen2-0.5b"
+SERVICE_ARCHS = ["chatglm3-6b", "phi4-mini-3.8b", "qwen2.5-32b"]
+SERVICE_POINT = (8, 2048)
+WARM_SPEEDUP_MIN = 10.0
+CHATGLM_ATTN_SHAPE = (8, 2081, 32, 128)  # chatglm3-6b's serving prefill: 32 heads of 128
 SERVE_BATCH, PROMPT, STEPS = 8, 2048, 32
 MODEL_CHECK_BATCH, MODEL_CHECK_SEQ = 2, 300  # ragged against the kernels' 32- and 64-row tiles
 DEVICE = "cuda"
@@ -258,14 +309,13 @@ def kernel_phase(torch, F, fa, kops, attention_ref):
     return model_layout_main(torch, F, kops, attention_ref, bhsd)
 
 
-def model_layout_main(torch, F, kops, attention_ref, bhsd):
-    """The main path's call: ``kernels.ops.flash_attention`` on q (B, S, H, d)
+def model_layout_main(torch, F, kops, attention_ref, bhsd, shape=MAIN_SHAPE, kv=MAIN_KV_HEADS):
+    """A main path's call: ``kernels.ops.flash_attention`` on q (B, S, H, d)
     and grouped k/v (B, S, KV, d) as the model makes them, against
     ``attention_ref`` on K/V expanded to H heads; timed beside the (BH, S, d)
-    kernel call, SDPA and the bound. Its numbers are the kernel's entry in
-    the ``kernels`` line."""
-    b, s, h, hd = MAIN_SHAPE
-    kv = MAIN_KV_HEADS
+    kernel call (``bhsd``, where given), SDPA and the bound. At ``MAIN_SHAPE``
+    its numbers are the kernel's entry in the ``kernels`` line."""
+    b, s, h, hd = shape
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).bfloat16()
     k, v = (torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).bfloat16()
@@ -279,15 +329,16 @@ def model_layout_main(torch, F, kops, attention_ref, bhsd):
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     check((diff - (tol + tol * want.float().abs())).max().item() <= 0,
-          f"model-layout kernel {MAIN_SHAPE} KV {kv}: max abs err {err} over tol {tol}")
+          f"model-layout kernel {shape} KV {kv}: max abs err {err} over tol {tol}")
     ms = time_ms(torch, lambda: kops.flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(torch, lambda: attention_ref(*flat, True))
     q4, k4, v4 = (t.view(b, h, s, hd) for t in flat)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
     bound, by = attention_bound_ms(b * h, s, s, hd, True, 2, H100_BF16_FLOPS, kv / h)
-    print(f"main shape {MAIN_SHAPE} bf16 causal, model layout with {kv} KV heads: "
-          f"max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f} (B*H, S, d) ms={bhsd['ms']:.4f}"
-          f" sdpa_ms={lib_ms:.4f} (same call {bhsd['library_ms']:.4f}) "
+    beside = (f" (B*H, S, d) ms={bhsd['ms']:.4f} sdpa_ms (B*H, S, d) "
+              f"{bhsd['library_ms']:.4f}" if bhsd else "")
+    print(f"shape {shape} bf16 causal, model layout with {kv} KV heads: "
+          f"max_abs_err={err:.3e} (tol {tol}) ms={ms:.4f}{beside} sdpa_ms={lib_ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms)
@@ -652,23 +703,23 @@ def step_launches(cfg) -> dict:
             "rmsnorm_bwd": norms}
 
 
-def profile_record(torch, tprof, cfg, b: int, s: int, counters):
+def profile_record(torch, tprof, cfg, b: int, s: int, counters, steps: int = PROFILE_STEPS):
     """``profile_lm`` on the card at (b, s), checked and printed as one JSON
     line, with the kernels' launches counted over exactly that call: one
-    warm-up and ``PROFILE_STEPS`` timed steps, each the launches of one step
-    (the trace for FLOPs and the NSM runs every kernel plain)."""
+    warm-up and ``steps`` timed steps, each the launches of one step (the
+    trace for FLOPs and the NSM runs every kernel plain)."""
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     reset_counts(counters)
-    rec = tprof.profile_lm(cfg, b, s, steps=PROFILE_STEPS, device=DEVICE)
+    rec = tprof.profile_lm(cfg, b, s, steps=steps, device=DEVICE)
     torch.cuda.synchronize()
     launches = read_counts(counters)
     check(rec.time_s > 0 and rec.mem_bytes > 0 and rec.flops > 0 and rec.nsm_edges,
           f"{cfg.name} record at {(b, s)} has a zero measurement or an empty NSM")
     per_step = step_launches(cfg)
-    want = {k: (PROFILE_STEPS + 1) * n for k, n in per_step.items()}
+    want = {k: (steps + 1) * n for k, n in per_step.items()}
     check(launches == want, f"{cfg.name} profile_lm at {(b, s)}: kernel launches {launches}, "
-                            f"want {want} ({PROFILE_STEPS + 1} steps of {per_step})")
+                            f"want {want} ({steps + 1} steps of {per_step})")
     print(json.dumps(dict(model=rec.model_name, batch=b, seq=s, time_s=rec.time_s,
                           mem_bytes=rec.mem_bytes, flops=rec.flops, params=rec.params,
                           nsm_pairs=len(rec.nsm_edges), nsm_edges=sum(rec.nsm_edges.values()),
@@ -759,6 +810,130 @@ def zoo_errors(got, exact, scale) -> dict:
             "grads": err(got[2:], exact[2:]) / scale}
 
 
+def layer_op(m) -> str:
+    """A zoo leaf layer's op, as the per-layer check names it."""
+    kind = type(m).__name__
+    if kind in ("Conv", "Depthwise"):
+        return f"conv {m.k}x{m.k} stride {m.stride} groups {m.groups} ({m.cin}->{m.cout})"
+    if kind in ("Pool", "Act"):
+        return f"{kind.lower()} {m.kind}"
+    return kind.lower()
+
+
+def zoo_layer_step(torch, tprof, model, params, x, y, device, dtype):
+    """One zoo step with every leaf layer's output kept: for each leaf layer
+    in the order it ran, (name, op, output, the loss's gradient there, and
+    its parameters' gradients), all float64 on the CPU."""
+    leaves = {k: v.to(device, dtype).requires_grad_(True) for k, v in params.items()}
+    ran = []
+    hooks = [m.register_forward_hook(lambda m, i, o, n=n: ran.append((n, m, o)))
+             for n, m in model.net.named_modules() if not any(True for _ in m.children())]
+    try:
+        logits = model.apply(leaves, x.to(device, dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    loss = tprof._softmax_ce(logits, y.to(device))
+    outs = [o for _, _, o in ran]
+    grads = torch.autograd.grad(loss, outs + list(leaves.values()), allow_unused=True)
+    pgrad = dict(zip(leaves, grads[len(outs):]))
+
+    def cpu(t):
+        return None if t is None else t.detach().double().cpu()
+    return [(n, layer_op(m), cpu(o), cpu(g),
+             {p: cpu(pgrad[p]) for p in (f"{n}.{k}" if n else k for k in m.specs)})
+            for (n, m, o), g in zip(ran, grads)]
+
+
+@contextlib.contextmanager
+def cudnn_setting(torch, enabled: bool, deterministic: bool, ieee: bool):
+    """cuDNN on or off, its algorithms deterministic or not, never
+    benchmarked, TF32 off; with ``ieee`` the convolutions' and matrix
+    products' fp32 precision is also set to "ieee" through torch's
+    ``fp32_precision`` settings (restored on exit)."""
+    with torch.backends.cudnn.flags(enabled=enabled, benchmark=False,
+                                    deterministic=deterministic, allow_tf32=False):
+        if not ieee:
+            yield
+            return
+        knobs = (torch.backends.cudnn.conv, torch.backends.cuda.matmul)
+        old = [k.fp32_precision for k in knobs]
+        for k in knobs:
+            k.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            for k, v in zip(knobs, old):
+                k.fp32_precision = v
+
+
+def sign_flips(card, cpu32, exact) -> str:
+    """How many of a layer's outputs sit on the other side of zero from the
+    float64 step's, on the card and on the CPU in fp32, and how close to zero
+    (relative to the output's largest entry) the card's flipped ones are."""
+    flipped = (card > 0) != (exact > 0)
+    far = (exact.abs()[flipped].max().item() / exact.abs().max().item()
+           if flipped.any() else 0.0)
+    return (f"{int(flipped.sum())} of its {exact.numel()} outputs change sign against float64 "
+            f"on the card (within {far:.1e} of zero), "
+            f"{int(((cpu32 > 0) != (exact > 0)).sum())} on the CPU in fp32")
+
+
+def zoo_layer_check(torch, tprof, tzoo, name: str) -> None:
+    """Queue C item 1's per-layer check: ``name``'s fp32 step on the card,
+    layer by layer, against the CPU's float64 step, under each cuDNN
+    setting. Each layer's output and the loss's gradient at that output are
+    compared relative to their largest exact entry, its parameters'
+    gradients relative to the largest exact parameter gradient (as the
+    whole step's check), against max(``ZOO_CHECK_FACTOR`` x the CPU fp32
+    step's error, ``ZOO_CHECK_FLOOR``). Printed: the first output that
+    leaves that rule in forward order, and the first gradient that leaves
+    it walking back from the loss, with its layer, op and the sign flips of
+    that layer's output (informational; nothing is checked)."""
+    model = tzoo.build_zoo_model(name)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    x = torch.randn((ZOO_CHECK_BATCH, 3, 32, 32), generator=gen)
+    y = torch.randint(0, 10, (ZOO_CHECK_BATCH,), generator=gen)
+
+    def run(device, dtype):
+        return zoo_layer_step(torch, tprof, model, params, x, y, device, dtype)
+    exact, cpu32 = run("cpu", torch.float64), run("cpu", torch.float32)
+    scale = max(g.abs().max().item() for *_, own in exact for g in own.values())
+
+    def rel(a, b, over=None):
+        if a is None or b is None:
+            return 0.0
+        return (a - b).abs().max().item() / (over or max(b.abs().max().item(), 1e-300))
+
+    def off(got, cpu_got, want, over=None):
+        err, err32 = rel(got, want, over), rel(cpu_got, want, over)
+        return err, err32, err > max(ZOO_CHECK_FACTOR * err32, ZOO_CHECK_FLOOR)
+    for label, (enabled, deterministic, ieee) in ZOO_LAYER_SETTINGS.items():
+        with cudnn_setting(torch, enabled, deterministic, ieee):
+            card = run(DEVICE, torch.float32)
+        layers = list(zip(card, cpu32, exact))  # (name, op, out, out grad, {param: grad})
+        fwd_off, bwd_off, worst = None, None, (0.0, "")
+        for (n, op, o, *_), (_, _, o32, *_), (_, _, oc, *_) in layers:
+            err, err32, bad = off(o, o32, oc)
+            if bad and fwd_off is None:
+                fwd_off = f"{n} ({op}): output {err:.2e} (CPU fp32 {err32:.2e})"
+        for (n, op, o, g, own), (_, _, o32, g32, own32), (_, _, oc, gc, ownc) in reversed(layers):
+            for what, got, cpu_got, want, over in (
+                    [("output gradient", g, g32, gc, None)]
+                    + [(k, own[k], own32[k], ownc[k], scale) for k in own]):
+                err, err32, bad = off(got, cpu_got, want, over)
+                if over:
+                    worst = max(worst, (err, f"{n} ({op}) {what}"))
+                if bad and bwd_off is None:
+                    bwd_off = (f"{n} ({op}): {what} {err:.2e} (CPU fp32 {err32:.2e}); "
+                               f"{sign_flips(o, o32, oc)}")
+        print(f"  {name} per layer, fp32 on the card with {label}: first output off the rule "
+              f"(forward): {fwd_off or 'none'}; first gradient off the rule (back from the "
+              f"loss): {bwd_off or 'none'}; largest parameter gradient error {worst[0]:.2e} of "
+              f"max |g| {scale:.3e}, at {worst[1]}")
+
+
 def zoo_check_phase(torch, tzoo, tprof):
     """Every zoo net's forward, loss and gradients on the card against the
     CPU's float64 step: the card's float64 step within ``ZOO_CHECK_F64_TOL``,
@@ -804,11 +979,13 @@ def zoo_check_phase(torch, tzoo, tprof):
               f"{scale:.3e} ({time.perf_counter() - t0:.1f} s)")
         check32(e32, "", allowance is not None)
         if allowance is not None:
-            with torch.backends.cudnn.flags(enabled=False):
+            with cudnn_setting(torch, enabled=False, deterministic=False, ieee=False):
                 plain = zoo_errors(run(DEVICE, torch.float32), exact, scale)
             print(f"{name} fp32 on the card with cuDNN off: logits {plain['logits']:.2e}, "
                   f"loss {plain['loss']:.2e}, grads {plain['grads']:.2e}")
             check32(plain, " with cuDNN off", not off_meets_rule)
+        if name in ZOO_LAYER_NETS:
+            zoo_layer_check(torch, tprof, tzoo, name)
     model = tzoo.build_zoo_model("shufflenet_v1")
     step, init = tprof.zoo_train_step(model, "adam", 0.1)
     ps = model.param_shapes()
@@ -869,12 +1046,28 @@ def corpus_phase(torch, tzoo, tprof, trand, counters):
     return records
 
 
+def lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters):
+    """The corpus's LMs on the card, as collect.py's lm_grid and random_grid
+    profile them: each ported arch of ``LM_ARCHS`` reduced, and the dense
+    and SSM draws of ``random_lm_config``, fp32 at ``LM_POINT``, each a
+    ``profile_lm`` call whose RMSNorm launches are counted."""
+    print(f"== phase 11: the corpus's LMs, {len(LM_GRID_ARCHS)} reduced archs and "
+          f"{len(RANDOM_LM_SEEDS)} random LMs profiled on the card at {LM_POINT}")
+    cfgs = ([reduced_config(get_config(a)) for a in LM_GRID_ARCHS]
+            + [trand.random_lm_config(seed) for seed in RANDOM_LM_SEEDS])
+    records = [profile_record(torch, tprof, cfg, *LM_POINT, counters, steps=LM_PROFILE_STEPS)[0]
+               for cfg in cfgs]
+    for rec in records:
+        check_record(rec)
+    return records
+
+
 def experiment_phase(np, records, tzoo):
     """DNNAbacus on the card's records, as the reference's bench_mre.py and
-    bench_unseen.py fit it; returns the MREs printed as one JSON line."""
+    bench_unseen.py fit it, its MREs printed as one JSON line; fitted with
+    phase 12's predictor beside them, which is returned."""
     from repro_torch.core.baselines import MLPBaseline, shape_inference_memory
     from repro_torch.core.features import design_matrix, mre, targets
-    from repro_torch.core.predictor import DNNAbacus
     print(f"== phase 11: DNNAbacus fitted on the card's {len(records)} records")
     for rec in records:
         check_record(rec)
@@ -895,16 +1088,16 @@ def experiment_phase(np, records, tzoo):
     unseen = [r for r in records if r.model_name in tzoo.UNSEEN]
     seen = [r for r in records if r.model_name not in tzoo.UNSEEN]
     check({r.model_name for r in unseen} == set(tzoo.UNSEEN), "an unseen net has no record")
-    models = {}
-    for k, (fit_on, rep) in {"split": (train, "nsm"), "nsm": (seen, "nsm"),
-                             "ge": (seen, "ge")}.items():
-        models[k] = DNNAbacus(representation=rep, seed=0).fit(
-            fit_on, candidate_factory=bench_candidates)
-        t_all, m_all = models[k].predict(records)
-        t_back, m_back = DNNAbacus.from_dict(
-            json.loads(json.dumps(models[k].to_dict()))).predict(records)
-        check(bool((t_back == t_all).all() and (m_back == m_all).all()),
-              f"the {k} predictor's to_dict/from_dict round trip changes its predictions")
+    # phase 12's predictor: every record but qwen2-0.5b's, the model it is asked about
+    unqueried = [r for r in records if r.model_name != SERVICE_UNSEEN]
+    t0 = time.perf_counter()
+    models = fit_predictors({"split": ("nsm", train), "nsm": ("nsm", seen), "ge": ("ge", seen),
+                             "service": ("nsm", unqueried)}, records)
+    print(f"4 DNNAbacus fits in {time.perf_counter() - t0:.1f} s, one worker process each "
+          f"(split {len(train)}, seen {len(seen)}, seen {len(seen)}, service {len(unqueried)} "
+          f"records)")
+    for k, model in models.items():
+        t_all, m_all = model.predict(records)
         check(bool(np.isfinite(t_all).all() and np.isfinite(m_all).all()
                    and (t_all > 0).all() and (m_all > 0).all()),
               f"a {k} prediction is not finite and positive")
@@ -938,7 +1131,114 @@ def experiment_phase(np, records, tzoo):
         out[f"unseen_mem_mre[{rep}]"] = evu["mem_mre"]
     out["n_seen"], out["n_unseen"] = len(seen), len(unseen)
     print(json.dumps({"mre": out}))
-    return out
+    return models["service"]
+
+
+def service_phase(torch, np, abacus, qwen_records, get_config):
+    """Phase 12: the online query. ``abacus`` was fitted on every corpus record
+    but qwen2-0.5b's, whose phase 10 records (``qwen_records``, one per
+    ``PROFILE_POINTS``) are the truth for its answers. Cold queries through
+    ``abacus.service()`` (one trace a key), the same queries warm (cache hits,
+    identical estimates, ``WARM_SPEEDUP_MIN`` times faster at the median),
+    ``predict_config`` against ``predict_one``, each qwen2-0.5b record of the
+    service against phase 10's (equal but for FLOPs, time and memory), and
+    one JSON line a query."""
+    from repro_torch.core.predictor import HBM_PER_DEVICE
+    print(f"== phase 12 (main path): the online query through DNNAbacus.service(), fitted "
+          f"without {SERVICE_UNSEEN}")
+    svc = abacus.service()
+    queries = ([(get_config(SERVICE_UNSEEN), b, s) for b, s in PROFILE_POINTS]
+               + [(get_config(arch), *SERVICE_POINT) for arch in SERVICE_ARCHS])
+    keys = {svc.cache_key(*q) for q in queries}
+    cold, cold_times = [], []
+    for cfg, b, s in queries:
+        t0 = time.perf_counter()
+        cold.append(svc.predict_one(cfg, b, s))
+        cold_times.append(time.perf_counter() - t0)
+        print(f"cold query {cfg.name} {(b, s)}: {cold_times[-1]:.2f} s", flush=True)
+    traced = svc.stats.traces
+    check(traced == len(keys) and svc.stats.misses == len(keys),
+          f"{traced} traces and {svc.stats.misses} misses for {len(keys)} distinct keys")
+    again, warm = [], []
+    for cfg, b, s in queries:
+        t0 = time.perf_counter()
+        again.append(svc.predict_one(cfg, b, s))
+        warm.append(time.perf_counter() - t0)
+    check(svc.stats.traces == traced and svc.stats.hits == len(queries),
+          f"warm queries traced again: {svc.stats.as_dict()}")
+    check(again == cold, "warm estimates differ from cold ones")
+    speedup = float(np.median(cold_times) / np.median(warm))
+    print(f"cold median {np.median(cold_times):.3f} s, warm median {np.median(warm) * 1e3:.3f} ms: "
+          f"warm {speedup:.0f}x faster; service {svc.cache_info()}")
+    check(speedup >= WARM_SPEEDUP_MIN, f"warm queries only {speedup:.1f}x faster than cold")
+    cfg, b, s = queries[-1]
+    check(abacus.predict_config(cfg, b, s) == svc.predict_one(cfg, b, s),
+          "predict_config and predict_one disagree")
+
+    for (cfg, b, s), est, cold_s, warm_s in zip(queries, cold, cold_times, warm):
+        rec = svc.cached_record(svc.cache_key(cfg, b, s))
+        traced_flops = rec.extra["traced_flops"]
+        offline = dataclasses.replace(rec, flops=traced_flops, extra=None)
+        t_off, m_off = (float(v[0]) for v in abacus.predict([offline]))
+        line = dict(model=cfg.name, batch=b, seq=s, time_s=est["time_s"],
+                    memory_bytes=est["memory_bytes"], admitted=est["admitted"],
+                    flops_online=rec.flops, flops_traced=traced_flops,
+                    offline_time_s=t_off, offline_memory_bytes=m_off,
+                    param_bytes_bf16=2 * rec.params, cold_s=cold_s, warm_s=warm_s)
+        for v in (est["time_s"], est["memory_bytes"], t_off, m_off):
+            check(bool(np.isfinite(v)) and v > 0, f"{cfg.name} {(b, s)}: estimate {v}")
+        check(est["admitted"] == (est["memory_bytes"] <= HBM_PER_DEVICE),
+              f"{cfg.name} {(b, s)}: admitted {est['admitted']} at {est['memory_bytes']} bytes")
+        if cfg.name == SERVICE_UNSEEN:
+            truth = qwen_records[PROFILE_POINTS.index((b, s))]
+            blank = dict(flops=0.0, time_s=0.0, mem_bytes=0.0, extra=None)
+            check(dataclasses.replace(rec, **blank) == dataclasses.replace(truth, **blank),
+                  f"{cfg.name} {(b, s)}: the service's record differs from profile_lm's")
+            check(traced_flops == truth.flops,
+                  f"{cfg.name} {(b, s)}: traced FLOPs {traced_flops} vs profile_lm {truth.flops}")
+            line.update(measured_time_s=truth.time_s, measured_mem_bytes=truth.mem_bytes,
+                        time_rel_err=abs(est["time_s"] - truth.time_s) / truth.time_s,
+                        mem_rel_err=abs(est["memory_bytes"] - truth.mem_bytes) / truth.mem_bytes,
+                        offline_time_rel_err=abs(t_off - truth.time_s) / truth.time_s,
+                        offline_mem_rel_err=abs(m_off - truth.mem_bytes) / truth.mem_bytes)
+        print(json.dumps({"query": line}))
+    print(f"{SERVICE_UNSEEN}'s service records equal profile_lm's at {PROFILE_POINTS} but for "
+          f"FLOPs, time and memory (NSM and traced FLOPs included)")
+
+
+def fit_worker_start() -> None:
+    """A fit worker's start: the port's sources on its path, numpy's BLAS on
+    one thread (the fits run side by side)."""
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
+    sys.path.insert(0, SRC)
+
+
+def fit_predictor(representation: str, fit_on, records):
+    """One DNNAbacus fit on ``fit_on`` with the bounded pool, in a worker
+    process: its ``to_dict``, and whether the ``to_dict``/``from_dict``
+    round trip predicts ``records`` identically."""
+    from repro_torch.core.predictor import DNNAbacus
+    ab = DNNAbacus(representation=representation, seed=0).fit(
+        fit_on, candidate_factory=bench_candidates)
+    d = json.loads(json.dumps(ab.to_dict()))
+    (t, m), (t_back, m_back) = ab.predict(records), DNNAbacus.from_dict(d).predict(records)
+    return d, bool((t_back == t).all() and (m_back == m).all())
+
+
+def fit_predictors(jobs: dict, records) -> dict:
+    """``{name: (representation, records to fit on)}`` -> ``{name: DNNAbacus}``,
+    fitted side by side, one spawned process each (the fits are numpy and
+    single-threaded, and take minutes one after another)."""
+    from repro_torch.core.predictor import DNNAbacus
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(jobs), mp_context=ctx, initializer=fit_worker_start) as pool:
+        futures = {k: pool.submit(fit_predictor, rep, fit_on, records)
+                   for k, (rep, fit_on) in jobs.items()}
+        fitted = {k: f.result() for k, f in futures.items()}
+    for k, (_, same) in fitted.items():
+        check(same, f"the {k} predictor's to_dict/from_dict round trip changes its predictions")
+    return {k: DNNAbacus.from_dict(d) for k, (d, _) in fitted.items()}
 
 
 def profile_device(torch, label: str, fn, wall_ms: float, reps: int = 1):
@@ -972,10 +1272,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    sys.path.insert(0, SRC)
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import profiler as tprof
     from repro_torch.core import randomgen as trand
     from repro_torch.core import zoo as tzoo
@@ -1048,12 +1348,29 @@ def main() -> int:
     t11 = time.perf_counter()
     zoo_check_phase(torch, tzoo, tprof)
     t_corpus = time.perf_counter()
-    records = corpus_phase(torch, tzoo, tprof, trand, counters) + lm_records
+    records = (corpus_phase(torch, tzoo, tprof, trand, counters) + lm_records
+               + lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters))
     t_fit = time.perf_counter()
-    experiment_phase(np, records, tzoo)
+    service_abacus = experiment_phase(np, records, tzoo)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
           f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits {t_end - t_fit:.1f} s")
+
+    service_phase(torch, np, service_abacus, lm_records[:len(PROFILE_POINTS)], get_config)
+    t_queries = time.perf_counter()
+    chatglm = get_config("chatglm3-6b")
+    model_check_phase(torch, "phase 12", chatglm, build_model, all_plain, steps=1)
+    chatglm_norms = 2 * chatglm.num_layers + 1
+    serve_phase(
+        torch, "phase 12", chatglm, build_model, DecodeEngine, counters,
+        {"flash_attention": chatglm.num_layers, "ssd_scan": 0, "rmsnorm_fwd": chatglm_norms,
+         "rmsnorm_bwd": 0},
+        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": chatglm_norms * STEPS,
+         "rmsnorm_bwd": 0})
+    model_layout_main(torch, F, kops, attention_ref, None, CHATGLM_ATTN_SHAPE,
+                      chatglm.num_kv_heads)
+    print(f"phase 12 wall time {time.perf_counter() - t_end:.1f} s: queries "
+          f"{t_queries - t_end:.1f} s, chatglm3-6b {time.perf_counter() - t_queries:.1f} s")
 
     rms_source = "src/repro_torch/kernels/csrc/rmsnorm.cu"
     print(json.dumps({"kernels": [

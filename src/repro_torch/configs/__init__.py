@@ -1,10 +1,13 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 A copy of ``repro.configs`` restricted to the architectures whose layer
-kinds the port builds so far: dense attention (qwen2-0.5b) and Mamba2 SSD
-(mamba2-370m). The other arch files arrive with the slices that port their
-layer kinds (see ROADMAP.md, Queue A). ``reduced_config`` shrinks a config
-to a CPU-runnable smoke-test size while preserving the layer pattern.
+kinds the port builds so far: dense attention with GQA, QKV bias, full or
+ChatGLM's "2d" partial RoPE and tied embeddings (qwen2-0.5b, chatglm3-6b,
+phi4-mini-3.8b, qwen2.5-32b), and Mamba2 SSD (mamba2-370m). The other arch
+files arrive with the slices that port their layer kinds (see ROADMAP.md,
+Queue A: MoE, hybrid, cross-attention, encoder). ``reduced_config`` shrinks
+a config to a CPU-runnable smoke-test size while preserving the layer
+pattern.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from typing import List
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
 _MODULES = {
+    "chatglm3-6b": "chatglm3_6b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2.5-32b": "qwen2_5_32b",
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-370m": "mamba2_370m",
 }
@@ -28,7 +34,8 @@ def list_archs() -> List[str]:
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: "
-                       f"{list(_MODULES)} (dense attention and Mamba2 SSD layers)")
+                       f"{list(_MODULES)} (dense attention and Mamba2 SSD layers; no MoE, hybrid, "
+                       f"cross-attention or encoder yet)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -18,8 +18,9 @@ on the card, which includes the cuDNN workspaces taken through the caching
 allocator; the reference's records hold XLA's ``memory_analysis`` bytes.
 They measure different things: never fit one predictor on a mix of the two.
 
-``service()`` and ``predict_config()`` need the port's ``PredictionService``,
-which comes with ROADMAP Queue A item 11; until then they raise.
+``service()`` fronts the predictor with the port's ``PredictionService``
+(``repro_torch.serve.prediction_service``), whose tracer is the port's
+``trace_query``; ``predict_config()`` answers one query through it.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ class DNNAbacus:
         self.ge_feat = (WLGraphEmbedder() if representation == "ge" else None)
         self.time_model: Optional[FittedEnsemble] = None
         self.mem_model: Optional[FittedEnsemble] = None
+        self._service = None  # lazily created PredictionService
 
     # -- featurization ------------------------------------------------------
     def _x(self, records: Sequence[ProfileRecord]) -> np.ndarray:
@@ -117,14 +119,31 @@ class DNNAbacus:
 
     # -- launcher integration ------------------------------------------------
     def service(self, store=None) -> "object":
-        """The PredictionService fronting this predictor: not ported yet."""
-        raise NotImplementedError(
-            "DNNAbacus.service needs the port's PredictionService, which ROADMAP "
-            "Queue A item 11 (serve/prediction_service.py::trace_query) ports")
+        """The (lazily created) PredictionService fronting this predictor.
+
+        All online queries go through it: repeated (config, batch, seq)
+        questions hit its trace cache instead of re-building the model.
+        ``store`` is the reference's cross-process ``TraceStore`` seam; the
+        port's service takes none until its own store exists (ROADMAP Queue
+        A item 18) and raises on one. It only takes effect when the service
+        is first created (or has no store yet): an already attached store is
+        never silently swapped out. For other custom options (budget, cache
+        size, tracer) construct a ``PredictionService`` directly —
+        recreating it here would throw away the warm trace cache.
+        """
+        if self._service is None:
+            from repro_torch.serve.prediction_service import PredictionService
+            self._service = PredictionService(self, store=store)
+        elif store is not None and self._service.store is None:
+            self._service.store = store
+        return self._service
 
     def predict_config(self, cfg, batch: int, seq: int) -> Dict:
-        """Admission-control estimate for a (ModelConfig, batch, seq) job:
-        answered by the PredictionService, not ported yet."""
+        """Admission-control estimate for a (ModelConfig, batch, seq) job.
+
+        Returns the service estimate dict: ``time_s``, ``memory_bytes``,
+        ``hbm_budget`` (floats) plus ``model`` (str) / ``admitted`` (bool).
+        """
         return self.service().predict_one(cfg, batch, seq)
 
     # -- persistence ----------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's boundaries: no JAX inside it (every module imports, and the
-serving, train-step, profiler-trace, zoo and predictor paths run), the card
-by default, and chip_smoke.py refusing to run without a card or without the
-repository."""
+serving, train-step, profiler-trace, zoo, predictor and prediction-query
+paths run), the card by default, and chip_smoke.py refusing to run without a
+card or without the repository."""
 
 import os
 import shutil
@@ -63,6 +63,11 @@ def test_port_imports_and_runs_with_jax_blocked():
             recs.append(profiler.zoo_record(net, 2, 32, time_s=1.0 + i, mem_bytes=2.0 + i, **tr))
         ab = DNNAbacus().fit(recs * 3, candidate_factory=lambda seed: [RidgeRegressor()])
         assert (ab.predict(recs)[0] > 0).all()
+        from repro_torch.serve import PredictionService
+        est = ab.predict_config(reduced_config(get_config("qwen2-0.5b")), 1, 8)
+        assert isinstance(ab.service(), PredictionService) and ab.service().stats.traces == 1
+        import math
+        assert math.isfinite(est["time_s"]) and math.isfinite(est["memory_bytes"])
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                         and sys.modules[m] is not None)
         assert not leaked, leaked

@@ -95,11 +95,14 @@ def test_abacus_refit_bit_identical():
 
 
 def test_hbm_budget_and_unported_service():
+    """The service fronts the predictor at the card's budget; what stays
+    unported is its persistent store (ROADMAP Queue A item 18)."""
     assert tp.HBM_PER_DEVICE == 85_017_493_504  # one H100 80GB HBM3's total memory
     ab = tp.DNNAbacus()
-    for call in (ab.service, lambda: ab.predict_config(None, 1, 8)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    svc = ab.service()
+    assert svc.hbm_budget == tp.HBM_PER_DEVICE and ab.service() is svc
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ab.service(store=object())
 
 
 def test_shape_inference_memory_equal():
