@@ -31,9 +31,10 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    ``ssd_chunked_ref`` on the card, fp32 (y within 2e-4) and bf16 (y within
    2e-2 of the fp32 plain result cast to bf16), the final state within 2e-4:
    the reference's kernel-test shapes, ragged lengths, jamba's state and
-   chunk, and the serving prefill's (8, 2081, 32, 64, N 128, chunk 256),
-   the last also with slow decay (the state carried across whole chunks),
-   with kernel and plain times and the card's bound;
+   chunk, and the serving prefills' (8, 2081, 32, 64, N 128, chunk 256) of
+   mamba2-370m, also with slow decay (the state carried across whole
+   chunks), and (8, 2081, 128, 64, N 16, chunk 64) of jamba-v0.1-52b, with
+   kernel and plain times and the card's bound;
 6. mamba2-370m at full width in fp32 (TF32 off): prefill logits through the
    kernel against the plain path, and prefill -> 3 decode steps against
    the full forward, both at 2e-3;
@@ -64,33 +65,49 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    then the corpus, ``profile_zoo`` on the card over the reference's
    default grid (``benchmarks/collect.py::zoo_grid``, 76 points),
    ``random_cnn`` seeds 0-11, phase 10's four ``profile_lm`` records and
-   the LMs of collect.py's lm_grid and random_grid (``LM_GRID_ARCHS``
-   reduced, ``random_lm_config`` of ``RANDOM_LM_SEEDS``), each printed as a
-   JSON line; then DNNAbacus fitted on those records as
+   the LMs of collect.py's lm_grid and random_grid (its eight
+   ``LM_GRID_ARCHS`` reduced, MoE, hybrid, VLM and audio among them, and
+   ``random_lm_config`` seeds 0-11, 7 and 11 MoE), each printed as a JSON
+   line: 112 records; then DNNAbacus fitted on those records as
    ``benchmarks/bench_mre.py`` (70/30 split, with the shape-inference and
    MLP baselines) and ``bench_unseen.py`` (zero-shot on the five unseen
    nets, NSM and graph embedding) do, its MREs printed as one JSON line,
    and the phase's wall time. The fits, phase 12's among them, run side by
-   side in spawned worker processes;
+   side in spawned worker processes, and phase 13 runs on the card
+   meanwhile;
 12. the fifth main path, the online query: ``DNNAbacus.service()`` over a
    predictor fitted on every record but qwen2-0.5b's, asked cold and warm
-   about qwen2-0.5b at phase 10's points and chatglm3-6b, phi4-mini-3.8b
-   and qwen2.5-32b at (8, 2048) (one trace a key, identical warm answers at
-   least 10x faster, each qwen2-0.5b record equal to phase 10's but for
-   FLOPs, time and memory), one JSON line a query with both FLOPs counts
-   and, for qwen2-0.5b, the measured time and memory; then chatglm3-6b at
-   full width, fp32 checks as phase 3 and bf16 served as phase 4 through the
-   flash-attention (head_dim 128, 16:1 grouped KV) and RMSNorm kernels, and
-   its prefill's flash call timed beside SDPA and the bound.
+   about qwen2-0.5b at phase 10's points and chatglm3-6b, phi4-mini-3.8b,
+   qwen2.5-32b and the MoE moonshot-v1-16b-a3b at (8, 2048) (one trace a
+   key, identical warm answers at least 10x faster, each qwen2-0.5b record
+   equal to phase 10's but for FLOPs, time and memory, every online FLOPs
+   count 6 x active parameters x batch x seq), one JSON line a query with
+   both FLOPs counts and, for qwen2-0.5b, the measured time and memory; then
+   chatglm3-6b at full width, fp32 checks as phase 3 and bf16 served as
+   phase 4 through the flash-attention (head_dim 128, 16:1 grouped KV) and
+   RMSNorm kernels, and its prefill's flash call timed beside SDPA and the
+   bound;
+13. the sixth main path, the MoE, hybrid, VLM and audio archs at full
+   width (``PHASE13``), each with fp32 checks as phase 3 (cross-attention
+   gates set to ``GATE``, stub patches or frames drawn on the card; MoE
+   teacher forcing at a capacity of the whole group) and bf16 served as
+   phase 4 with every kernel's launches counted (``serve_launches``) and
+   the peak memory beside the card's: moonshot-v1-16b-a3b whole (48
+   layers: 48 flash, 97 RMSNorm a prefill), arctic-480b, jamba-v0.1-52b and
+   llama-3.2-vision-90b one period deep (jamba: 7 SSD calls a prefill), and
+   whisper-tiny whole (its LayerNorm plain, its encoder's attention
+   non-causal and plain); then moonshot's prefill flash call, 16 heads of
+   128 over 16 KV heads, timed beside SDPA and the bound. It runs while
+   phase 11's fits run in their worker processes.
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
 and must be 0); its LM records' steps run the RMSNorm kernels, counted
 around each ``profile_lm`` call. Nothing in phases 11 and 12 is caught: a
 record, a query or a kernel that fails fails the run.
-Phases 3, 6 and 12 run their plain side with every kernel pinned plain;
-phases 4, 7 and 12 count the RMSNorm kernel too (one launch a norm, each
-prefill and each decode step). Any failed check raises, so the script exits
+Phases 3, 6, 12 and 13 run their plain side with every kernel pinned plain;
+phases 4, 7, 12 and 13 count the RMSNorm kernel too (one launch a norm,
+each prefill and each decode step). Any failed check raises, so the script exits
 nonzero without the final line; so it does without a card, or away from the
 repository's sources.
 The last lines are a JSON object of kernel results, the card's
@@ -122,10 +139,12 @@ TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 MODEL_TOL = 2e-3
 
 # (b, l, h, p, n, chunk): the reference's SSD kernel-test shapes, ragged L
-# (1, 67, 2081), jamba's N 16 / chunk 64, and the serving prefill's
+# (1, 67, 2081), jamba's N 16 / chunk 64, and the serving prefills of
+# mamba2-370m and jamba-v0.1-52b (JAMBA_SSD_SHAPE, phase 13's)
 SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 1, 64, 32, 32),
               (2, 1, 4, 32, 16, 64), (2, 67, 4, 64, 64, 32), (2, 2081, 8, 64, 128, 256),
-              (2, 300, 4, 64, 16, 64), (8, 2081, 32, 64, 128, 256)]
+              (2, 300, 4, 64, 16, 64), (8, 2081, 32, 64, 128, 256),
+              (8, 2081, 128, 64, 16, 64)]
 SSD_MAIN = (8, 2081, 32, 64, 128, 256)  # mamba2-370m serving prefill: 32 heads, P 64, N 128
 # shapes also run with slow decay (dt = softplus(draw - 4)), so the state
 # carried across chunks reaches deep into each chunk and the final state
@@ -168,11 +187,13 @@ ZOO_GRID = ([dict(name=n, batch=b, image=32) for n in FAST_NETS for b in (8, 32)
             + [dict(name=n, batch=8, image=24) for n in MID_NETS]
             + [dict(name=n, batch=8, image=32) for n in SLOW_NETS])
 RANDOM_CNN_SEEDS = range(12)  # collect.py's random_grid: batch 8 + 8 * (seed % 3), 32 px
-# collect.py's lm_grid (LM_ARCHS the port builds) and random_grid's rand_lm
-# seeds 0-11 but the MoE draws 7 and 11 (no MoE layer is ported), reduced or
-# drawn in fp32, each profiled at (2, 64) with steps=2
-LM_GRID_ARCHS = ["qwen2-0.5b", "chatglm3-6b", "phi4-mini-3.8b", "mamba2-370m"]
-RANDOM_LM_SEEDS = [0, 1, 2, 3, 4, 5, 6, 8, 9, 10]
+# collect.py's lm_grid (its LM_ARCHS, copied) and random_grid's rand_lm seeds
+# 0-11 (7 and 11 are MoE draws), reduced or drawn in fp32, each profiled at
+# (2, 64) with steps=2
+LM_GRID_ARCHS = ["qwen2-0.5b", "chatglm3-6b", "phi4-mini-3.8b", "mamba2-370m",
+                 "whisper-tiny", "moonshot-v1-16b-a3b", "jamba-v0.1-52b",
+                 "llama-3.2-vision-90b"]
+RANDOM_LM_SEEDS = range(12)
 LM_POINT = (2, 64)
 LM_PROFILE_STEPS = 2
 ZOO_PROFILE_STEPS = 2  # collect.py profiles with steps=2
@@ -212,15 +233,28 @@ IN_SAMPLE_MRE_MAX = 1.0  # the reference's tests/test_system.py bound
 
 # phase 12: the online query. The service's predictor never sees qwen2-0.5b,
 # whose phase 10 records are the truth for its answers at PROFILE_POINTS; the
-# three dense configs are asked about at (8, 2048) at full width. Warm
-# queries must be 10x faster than cold at the median, the reference's target
-# (benchmarks/bench_service.py). chatglm3-6b is then served through the
-# flash-attention (head_dim 128, 16:1 grouped KV) and RMSNorm kernels.
+# three dense configs and the MoE moonshot-v1-16b-a3b are asked about at
+# (8, 2048) at full width, the FLOPs by the reference's online formula, 6 x
+# active parameters x batch x seq. Warm queries must be 10x faster than cold
+# at the median, the reference's target (benchmarks/bench_service.py).
+# chatglm3-6b is then served through the flash-attention (head_dim 128, 16:1
+# grouped KV) and RMSNorm kernels.
 SERVICE_UNSEEN = "qwen2-0.5b"
-SERVICE_ARCHS = ["chatglm3-6b", "phi4-mini-3.8b", "qwen2.5-32b"]
+SERVICE_ARCHS = ["chatglm3-6b", "phi4-mini-3.8b", "qwen2.5-32b", "moonshot-v1-16b-a3b"]
 SERVICE_POINT = (8, 2048)
 WARM_SPEEDUP_MIN = 10.0
 CHATGLM_ATTN_SHAPE = (8, 2081, 32, 128)  # chatglm3-6b's serving prefill: 32 heads of 128
+# phase 13: the MoE, hybrid, VLM and audio archs at full width, each
+# (arch, depth of the fp32 check, depth served in bf16, decode steps of the
+# fp32 check), None for the config's own depth: moonshot-v1-16b-a3b served
+# whole (48 layers), arctic-480b, jamba-v0.1-52b and llama-3.2-vision-90b cut
+# to one period of their layer pattern (1, 8 and 5 layers), whisper-tiny whole
+PHASE13 = [("moonshot-v1-16b-a3b", 2, None, 2), ("arctic-480b", 1, 1, 2),
+           ("jamba-v0.1-52b", 8, 8, 3), ("llama-3.2-vision-90b", 5, 5, 2),
+           ("whisper-tiny", None, None, 2)]
+GATE = 0.5  # llama-3.2-vision's cross-attention gate in the checks and serving (0 at init)
+MOONSHOT_ATTN_SHAPE = (8, 2081, 16, 128)  # its serving prefill: 16 heads of 128, 16 KV heads
+JAMBA_SSD_SHAPE = (8, 2081, 128, 64, 16, 64)  # its serving prefill: 128 heads, P 64, N 16
 SERVE_BATCH, PROMPT, STEPS = 8, 2048, 32
 MODEL_CHECK_BATCH, MODEL_CHECK_SEQ = 2, 300  # ragged against the kernels' 32- and 64-row tiles
 DEVICE = "cuda"
@@ -344,17 +378,54 @@ def model_layout_main(torch, F, kops, attention_ref, bhsd, shape=MAIN_SHAPE, kv=
                 library_ms=lib_ms)
 
 
-def model_check_phase(torch, label, cfg_full, build_model, all_plain, steps):
-    print(f"== {label}: {cfg_full.name} full width, fp32 (TF32 off): kernels vs plain, "
-          f"prefill -> {steps} decode steps")
-    cfg = dataclasses.replace(cfg_full, dtype="float32")
+def modality_inputs(torch, cfg, b: int, dtype, seed: int = 5) -> dict:
+    """``cfg``'s stub memory on the card, drawn from ``seed``: image
+    ``patches`` for a cross-attention config, audio ``frames`` for an
+    encoder-decoder one (both frontends are stubs, as in the reference)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    if cfg.cross_every:
+        out["patches"] = torch.randn((b, cfg.vision_seq, cfg.d_model), generator=gen,
+                                     device=DEVICE).to(dtype)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn((b, cfg.audio_seq, cfg.d_model), generator=gen,
+                                    device=DEVICE).to(dtype)
+    return out
+
+
+def build_seeded(torch, build_model, cfg):
+    """``cfg``'s model on the card from seed 0, with every cross-attention
+    gate set to ``GATE`` (zero at init, which would hide the layer)."""
     model = build_model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    with torch.no_grad():
+        for layer in model.layers:
+            if hasattr(layer, "gate_attn"):
+                layer.gate_attn.fill_(GATE)
+    return model
+
+
+def model_check_phase(torch, label, cfg_full, build_model, all_plain, steps, depth=None):
+    """``cfg_full`` at full width and ``depth`` layers (default: all) in fp32:
+    prefill logits through the kernels against every kernel pinned plain,
+    then prefill -> ``steps`` decode steps against the full forward, both at
+    ``MODEL_TOL``. A sequence and one token are grouped differently, so with
+    MoE teacher forcing holds only where no token is dropped: the model is
+    rebuilt from the same seed with a capacity of the whole group (capacity
+    factor E / k). The reference's test takes 8 at its reduced size; at
+    arctic-480b's full width 8 leaves 64 slots of a 512-token group, fewer
+    than an untrained router may send one expert."""
+    depth = depth or cfg_full.num_layers
+    print(f"== {label}: {cfg_full.name} full width, {depth} of {cfg_full.num_layers} layers, "
+          f"fp32 (TF32 off): kernels vs plain, prefill -> {steps} decode steps")
+    cfg = dataclasses.replace(cfg_full, dtype="float32", num_layers=depth)
+    model = build_seeded(torch, build_model, cfg)
     b, s = MODEL_CHECK_BATCH, MODEL_CHECK_SEQ
     tokens = (torch.arange(b * s, device=DEVICE).reshape(b, s) * 7) % (cfg.vocab_size - 1)
+    memory = modality_inputs(torch, cfg, b, torch.float32)
     with torch.no_grad():
         with all_plain():
-            plain, _ = model.prefill({"tokens": tokens})
-        kern, cache = model.prefill({"tokens": tokens})
+            plain, _ = model.prefill({"tokens": tokens, **memory})
+        kern, cache = model.prefill({"tokens": tokens, **memory})
         err = (kern - plain).abs().max().item()
         vocab_rows = -(-cfg.vocab_size // 256) * 256
         check(kern.shape == (b, 1, vocab_rows), f"prefill logits shape {tuple(kern.shape)}")
@@ -362,13 +433,23 @@ def model_check_phase(torch, label, cfg_full, build_model, all_plain, steps):
         check(torch.allclose(kern, plain, atol=MODEL_TOL, rtol=MODEL_TOL),
               f"prefill kernel vs plain: max abs err {err}")
         print(f"prefill logits kernel vs plain: max_abs_err={err:.3e} (tol {MODEL_TOL})")
+        if cfg.num_experts:
+            del model, cache
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+            model = build_seeded(torch, build_model, cfg)
+            _, cache = model.prefill({"tokens": tokens, **memory})
+            print(f"teacher forcing at capacity_factor {cfg.capacity_factor:.4g} = experts / "
+                  f"top_k: a capacity of the whole group, no token dropped")
 
         nxt = (torch.arange(b * steps, device=DEVICE).reshape(b, steps) * 3 + 1) % cfg.vocab_size
-        full, _ = model.forward({"tokens": torch.cat([tokens, nxt], dim=1)})
-        # attention caches get room for the steps (the engine's prompt-sized
-        # cache has none); the SSM state has no sequence axis
-        cache = [{n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, steps)) if n in ("k", "v") else t
-                  for n, t in c.items()} for c in cache]
+        full, _ = model.forward({"tokens": torch.cat([tokens, nxt], dim=1), **memory})
+        # self-attention caches get room for the steps (the engine's
+        # prompt-sized cache has none); a cross layer's memory K/V and the
+        # SSM state keep their shapes
+        cache = [{n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, steps))
+                  if n in ("k", "v") and t.shape[1] == s else t for n, t in c.items()}
+                 for c in cache]
         for i in range(steps):
             step, cache = model.decode_step(
                 cache, nxt[:, i:i + 1], torch.full((b,), s + i, dtype=torch.int32, device=DEVICE))
@@ -396,19 +477,21 @@ def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect, 
     prefill and read just after it and after the decode steps; ``expect`` and
     ``expect_decode`` give each kernel's launches per prefill and over the
     decode steps. Returns the launch counts of the first run's prefill."""
-    print(f"== {label} (main path): {cfg.name} bf16 full width through DecodeEngine")
-    model = build_model(cfg, device=DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    print(f"== {label} (main path): {cfg.name} bf16 full width, {cfg.num_layers} layers, "
+          f"through DecodeEngine")
+    model = build_seeded(torch, build_model, cfg)
     total = PROMPT + STEPS + 1
     prompts = ((torch.arange(SERVE_BATCH * total, device=DEVICE).reshape(SERVE_BATCH, total)
                 * 13) % (cfg.vocab_size - 1))
     prompts[:, PROMPT:] = 0
+    inputs = {"tokens": prompts, **modality_inputs(torch, cfg, SERVE_BATCH, model.dtype)}
 
     def serve_once():
         engine = DecodeEngine(model, batch=SERVE_BATCH, max_seq=total)
         torch.cuda.synchronize()
         reset_counts(counters)
         t0 = time.perf_counter()
-        first = engine.prefill({"tokens": prompts})
+        first = engine.prefill(inputs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         launches = read_counts(counters)
@@ -428,16 +511,18 @@ def serve_phase(torch, label, cfg, build_model, DecodeEngine, counters, expect, 
         torch.cuda.reset_peak_memory_stats()
         out, launches, prefill_ms, decode_ms, engine = serve_once()
         peak = torch.cuda.max_memory_allocated()
+        card_bytes = torch.cuda.get_device_properties(0).total_memory
         counts = " ".join(f"{name}_launches={n}" for name, n in launches.items())
         print(f"serve run {i}: prefill_ms={prefill_ms:.3f} decode_ms_per_token={decode_ms:.3f} "
-              f"{counts} max_memory_allocated={peak} ({peak / 2**30:.3f} GiB)")
+              f"{counts} max_memory_allocated={peak} ({peak / 2**30:.3f} GiB, {peak / 1e9:.2f} "
+              f"of the card's {card_bytes / 1e9:.2f} GB)")
         check(launches == expect, f"kernel launches per prefill {launches}, want {expect}")
         check(out.shape == (SERVE_BATCH, STEPS + 1), f"tokens shape {tuple(out.shape)}")
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token out of vocab")
         runs.append((out, launches, prefill_ms, decode_ms))
     check(torch.equal(runs[0][0], runs[1][0]), "two serve runs gave different tokens")
     print(f"serve tokens deterministic over 2 runs; request 0: {runs[1][0][0].tolist()}")
-    profile_device(torch, "prefill", lambda: model.prefill({"tokens": prompts}),
+    profile_device(torch, "prefill", lambda: model.prefill(inputs),
                    wall_ms=runs[1][2])
     last = runs[1][0][:, -1]
     profile_device(torch, "decode step", lambda: engine.step(last), wall_ms=runs[1][3], reps=4)
@@ -499,8 +584,10 @@ def ssd_bound_ms(b, l, h, p, n, chunk, dtype_bytes):
 
 
 def ssd_phase(torch, ssd, ssd_chunked_ref):
+    """Every SSD shape against the plain version; returns the bf16 entries of
+    the two serving prefills' shapes, ``SSD_MAIN`` and ``JAMBA_SSD_SHAPE``."""
     print("== phase 5: SSD chunked-scan kernel vs plain on the card")
-    main = None
+    main = {}
     cases = [(shape, slow) for shape in SSD_SHAPES
              for slow in ((False, True) if shape in SSD_SLOW else (False,))]
     for shape, slow in cases:
@@ -537,9 +624,9 @@ def ssd_phase(torch, ssd, ssd_chunked_ref):
             print(f"ssd kernel (b,l,h,p,n,chunk)={shape} {name}: y max_abs_err={err:.3e} "
                   f"(tol {tol}) state max_abs_err={serr:.3e} (tol 2e-4) ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by})")
-            if shape == SSD_MAIN and dtype == torch.bfloat16 and not slow:
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=by, library_ms=None)
+            if shape in (SSD_MAIN, JAMBA_SSD_SHAPE) and dtype == torch.bfloat16 and not slow:
+                main[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=by, library_ms=None)
             del xb, dt, a_neg, bm, cm, y, state
     torch.cuda.empty_cache()
     return main
@@ -692,13 +779,39 @@ def train_check_phase(torch, cfg_full, build_model, use_impls, topt, tstep, coun
     return launches
 
 
+def rms_norms(cfg) -> int:
+    """RMSNorms in one pass of ``cfg``'s decoder: one before each layer's
+    mixer, one before its MLP where it has one, ``norm_x`` before an
+    ``attn_cross`` layer's cross-attention, and the final norm; 0 for a
+    LayerNorm config (whisper-tiny: LayerNorm runs plain, as in the
+    reference). The SSM's gated norm is plain too."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    return sum(1 + (mlp != "none") + (mixer == "attn_cross") for mixer, mlp in kinds) + 1
+
+
+def serve_launches(cfg):
+    """Each kernel's launches in a prefill and over the ``STEPS`` decode steps of
+    ``cfg``: flash in every causal self-attention and the SSD scan in every
+    SSM layer, in the prefill only (decode and cross-attention run plain),
+    and every RMSNorm in the prefill and in each decode step."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    norms = rms_norms(cfg)
+    prefill = {"flash_attention": sum(m in ("attn", "attn_cross") for m, _ in kinds),
+               "ssd_scan": sum(m == "ssm" for m, _ in kinds), "rmsnorm_fwd": norms,
+               "rmsnorm_bwd": 0}
+    decode = {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * STEPS,
+              "rmsnorm_bwd": 0}
+    return prefill, decode
+
+
 def step_launches(cfg) -> dict:
     """Each kernel's launches in one train step of ``cfg``: every RMSNorm
-    forward (one before a layer's mixer, one before its MLP where it has
-    one, and the final norm), again in the remat recompute of each layer,
+    forward (``rms_norms``), again in the remat recompute of each layer,
     and backward; attention and the SSD scan run plain in training."""
-    norms = sum(1 + (cfg.layer_kind(i)[1] != "none") for i in range(cfg.num_layers)) + 1
-    recompute = norms - 1 if cfg.remat == "full" else 0
+    norms = rms_norms(cfg)
+    recompute = max(norms - 1, 0) if cfg.remat == "full" else 0
     return {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms + recompute,
             "rmsnorm_bwd": norms}
 
@@ -1062,10 +1175,11 @@ def lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters):
     return records
 
 
-def experiment_phase(np, records, tzoo):
+def experiment_phase(np, records, tzoo, meanwhile):
     """DNNAbacus on the card's records, as the reference's bench_mre.py and
     bench_unseen.py fit it, its MREs printed as one JSON line; fitted with
-    phase 12's predictor beside them, which is returned."""
+    phase 12's predictor beside them, which is returned. ``meanwhile`` (phase
+    13) runs in this process while the fits run in theirs."""
     from repro_torch.core.baselines import MLPBaseline, shape_inference_memory
     from repro_torch.core.features import design_matrix, mre, targets
     print(f"== phase 11: DNNAbacus fitted on the card's {len(records)} records")
@@ -1091,11 +1205,12 @@ def experiment_phase(np, records, tzoo):
     # phase 12's predictor: every record but qwen2-0.5b's, the model it is asked about
     unqueried = [r for r in records if r.model_name != SERVICE_UNSEEN]
     t0 = time.perf_counter()
-    models = fit_predictors({"split": ("nsm", train), "nsm": ("nsm", seen), "ge": ("ge", seen),
-                             "service": ("nsm", unqueried)}, records)
+    models, waited = fit_predictors({"split": ("nsm", train), "nsm": ("nsm", seen),
+                                     "ge": ("ge", seen), "service": ("nsm", unqueried)},
+                                    records, meanwhile)
     print(f"4 DNNAbacus fits in {time.perf_counter() - t0:.1f} s, one worker process each "
           f"(split {len(train)}, seen {len(seen)}, seen {len(seen)}, service {len(unqueried)} "
-          f"records)")
+          f"records); {waited:.1f} s of it waited for after phase 13")
     for k, model in models.items():
         t_all, m_all = model.predict(records)
         check(bool(np.isfinite(t_all).all() and np.isfinite(m_all).all()
@@ -1187,6 +1302,10 @@ def service_phase(torch, np, abacus, qwen_records, get_config):
                     param_bytes_bf16=2 * rec.params, cold_s=cold_s, warm_s=warm_s)
         for v in (est["time_s"], est["memory_bytes"], t_off, m_off):
             check(bool(np.isfinite(v)) and v > 0, f"{cfg.name} {(b, s)}: estimate {v}")
+        formula = 6.0 * cfg.active_param_count() * b * s
+        check(rec.flops == formula, f"{cfg.name} {(b, s)}: online FLOPs {rec.flops}, want 6 x "
+                                    f"active params x batch x seq = {formula}")
+        line.update(active_params=cfg.active_param_count())
         check(est["admitted"] == (est["memory_bytes"] <= HBM_PER_DEVICE),
               f"{cfg.name} {(b, s)}: admitted {est['admitted']} at {est['memory_bytes']} bytes")
         if cfg.name == SERVICE_UNSEEN:
@@ -1204,6 +1323,32 @@ def service_phase(torch, np, abacus, qwen_records, get_config):
         print(json.dumps({"query": line}))
     print(f"{SERVICE_UNSEEN}'s service records equal profile_lm's at {PROFILE_POINTS} but for "
           f"FLOPs, time and memory (NSM and traced FLOPs included)")
+
+
+def new_archs_phase(torch, F, kops, attention_ref, get_config, build_model, all_plain,
+                    DecodeEngine, counters):
+    """Phase 13: the MoE, hybrid, VLM and audio archs of ``PHASE13`` at full
+    width, each checked in fp32 (``model_check_phase``) and served in bf16
+    with its kernels' launches counted (``serve_phase``, ``serve_launches``),
+    then moonshot-v1-16b-a3b's prefill flash call timed. Returns each arch's
+    prefill launches and the flash call's entry of the ``kernels`` line."""
+    print("== phase 13 (main path): the MoE, hybrid, VLM and audio archs at full width, on "
+          "the card while phase 11's fits run on the host")
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, check_depth, serve_depth, steps in PHASE13:
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        model_check_phase(torch, "phase 13", cfg, build_model, all_plain, steps, check_depth)
+        served = dataclasses.replace(cfg, num_layers=serve_depth or cfg.num_layers)
+        launches[arch] = serve_phase(torch, "phase 13", served, build_model, DecodeEngine,
+                                     counters, *serve_launches(served))
+        print(f"phase 13 {arch}: {time.perf_counter() - t:.1f} s")
+    moonshot = get_config("moonshot-v1-16b-a3b")
+    flash = model_layout_main(torch, F, kops, attention_ref, None, MOONSHOT_ATTN_SHAPE,
+                              moonshot.num_kv_heads)
+    print(f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
+    return launches, flash
 
 
 def fit_worker_start() -> None:
@@ -1226,19 +1371,24 @@ def fit_predictor(representation: str, fit_on, records):
     return d, bool((t_back == t).all() and (m_back == m).all())
 
 
-def fit_predictors(jobs: dict, records) -> dict:
+def fit_predictors(jobs: dict, records, meanwhile):
     """``{name: (representation, records to fit on)}`` -> ``{name: DNNAbacus}``,
     fitted side by side, one spawned process each (the fits are numpy and
-    single-threaded, and take minutes one after another)."""
+    single-threaded, and take minutes one after another), and the seconds
+    spent waiting for them after ``meanwhile()``, which runs here while they
+    do."""
     from repro_torch.core.predictor import DNNAbacus
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(len(jobs), mp_context=ctx, initializer=fit_worker_start) as pool:
         futures = {k: pool.submit(fit_predictor, rep, fit_on, records)
                    for k, (rep, fit_on) in jobs.items()}
+        meanwhile()
+        t0 = time.perf_counter()
         fitted = {k: f.result() for k, f in futures.items()}
+        waited = time.perf_counter() - t0
     for k, (_, same) in fitted.items():
         check(same, f"the {k} predictor's to_dict/from_dict round trip changes its predictions")
-    return {k: DNNAbacus.from_dict(d) for k, (d, _) in fitted.items()}
+    return {k: DNNAbacus.from_dict(d) for k, (d, _) in fitted.items()}, waited
 
 
 def profile_device(torch, label: str, fn, wall_ms: float, reps: int = 1):
@@ -1318,26 +1468,17 @@ def main() -> int:
 
     flash_main = kernel_phase(torch, F, fa, kops, attention_ref)
     qwen = get_config("qwen2-0.5b")
-    norms = 2 * qwen.num_layers + 1  # two a layer and the final norm
     model_check_phase(torch, "phase 3", qwen, build_model, all_plain, steps=1)
-    qwen_launches = serve_phase(
-        torch, "phase 4", qwen, build_model, DecodeEngine, counters,
-        {"flash_attention": qwen.num_layers, "ssd_scan": 0, "rmsnorm_fwd": norms,
-         "rmsnorm_bwd": 0},
-        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * STEPS, "rmsnorm_bwd": 0})
+    qwen_launches = serve_phase(torch, "phase 4", qwen, build_model, DecodeEngine, counters,
+                                *serve_launches(qwen))
     attention_ops_listing(torch, qwen)
 
     ssd_main = ssd_phase(torch, ssd, ssd_chunked_ref)
-    check(ssd_main is not None, "main-path SSD shape was not run")
+    check(set(ssd_main) == {SSD_MAIN, JAMBA_SSD_SHAPE}, "a main-path SSD shape was not run")
     mamba = get_config("mamba2-370m")
     model_check_phase(torch, "phase 6", mamba, build_model, all_plain, steps=3)
-    mamba_norms = mamba.num_layers + 1  # one a layer and the final norm
-    mamba_launches = serve_phase(
-        torch, "phase 7", mamba, build_model, DecodeEngine, counters,
-        {"flash_attention": 0, "ssd_scan": mamba.num_layers, "rmsnorm_fwd": mamba_norms,
-         "rmsnorm_bwd": 0},
-        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": mamba_norms * STEPS,
-         "rmsnorm_bwd": 0})
+    mamba_launches = serve_phase(torch, "phase 7", mamba, build_model, DecodeEngine, counters,
+                                 *serve_launches(mamba))
 
     rms_main = rmsnorm_phase(torch, F, rn, rmsnorm_ref)
     check(set(rms_main) == {"rmsnorm_fwd", "rmsnorm_bwd"}, "main-path RMSNorm shape was not run")
@@ -1351,42 +1492,61 @@ def main() -> int:
     records = (corpus_phase(torch, tzoo, tprof, trand, counters) + lm_records
                + lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters))
     t_fit = time.perf_counter()
-    service_abacus = experiment_phase(np, records, tzoo)
+    new_archs = {}
+
+    def on_the_card():  # phase 13, while the fits run in their processes
+        new_archs["launches"], new_archs["flash"] = new_archs_phase(
+            torch, F, kops, attention_ref, get_config, build_model, all_plain, DecodeEngine,
+            counters)
+    service_abacus = experiment_phase(np, records, tzoo, on_the_card)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
-          f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits {t_end - t_fit:.1f} s")
+          f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits with phase 13 "
+          f"beside them {t_end - t_fit:.1f} s")
 
     service_phase(torch, np, service_abacus, lm_records[:len(PROFILE_POINTS)], get_config)
     t_queries = time.perf_counter()
     chatglm = get_config("chatglm3-6b")
     model_check_phase(torch, "phase 12", chatglm, build_model, all_plain, steps=1)
-    chatglm_norms = 2 * chatglm.num_layers + 1
-    serve_phase(
-        torch, "phase 12", chatglm, build_model, DecodeEngine, counters,
-        {"flash_attention": chatglm.num_layers, "ssd_scan": 0, "rmsnorm_fwd": chatglm_norms,
-         "rmsnorm_bwd": 0},
-        {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": chatglm_norms * STEPS,
-         "rmsnorm_bwd": 0})
+    serve_phase(torch, "phase 12", chatglm, build_model, DecodeEngine, counters,
+                *serve_launches(chatglm))
     model_layout_main(torch, F, kops, attention_ref, None, CHATGLM_ATTN_SHAPE,
                       chatglm.num_kv_heads)
     print(f"phase 12 wall time {time.perf_counter() - t_end:.1f} s: queries "
           f"{t_queries - t_end:.1f} s, chatglm3-6b {time.perf_counter() - t_queries:.1f} s")
 
+    # each kernel at its main shape, and flash and the SSD scan also at
+    # phase 13's: launches are those of the main path's call at that shape
+    # (a prefill; phase 10's qwen2-0.5b profile_lm call for RMSNorm)
+    flash_source = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    ssd_source = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     rms_source = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+    moonshot, jamba = "moonshot-v1-16b-a3b", "jamba-v0.1-52b"
     print(json.dumps({"kernels": [
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        dict(name="flash_attention", route="cuda", source=flash_source,
              replaces="src/repro/kernels/flash_attention.py:32",
-             launches=qwen_launches["flash_attention"], **flash_main),
-        dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             launches=qwen_launches["flash_attention"], shape=f"qwen2-0.5b {MAIN_SHAPE}",
+             **flash_main),
+        dict(name=f"flash_attention ({moonshot})", route="cuda", source=flash_source,
+             replaces="src/repro/kernels/flash_attention.py:32",
+             launches=new_archs["launches"][moonshot]["flash_attention"],
+             shape=f"{moonshot} {MOONSHOT_ATTN_SHAPE}", **new_archs["flash"]),
+        dict(name="ssd_scan", route="cuda", source=ssd_source,
              replaces="src/repro/kernels/ssd_scan.py:24",
-             launches=mamba_launches["ssd_scan"], **ssd_main),
+             launches=mamba_launches["ssd_scan"], shape=f"mamba2-370m {SSD_MAIN}",
+             **ssd_main[SSD_MAIN]),
+        dict(name=f"ssd_scan ({jamba})", route="cuda", source=ssd_source,
+             replaces="src/repro/kernels/ssd_scan.py:24",
+             launches=new_archs["launches"][jamba]["ssd_scan"],
+             shape=f"{jamba} {JAMBA_SSD_SHAPE}", **ssd_main[JAMBA_SSD_SHAPE]),
         dict(name="rmsnorm_fwd", route="cuda", source=rms_source,
              replaces="src/repro/kernels/rmsnorm.py:18",
-             launches=profile_launches["rmsnorm_fwd"], **rms_main["rmsnorm_fwd"]),
+             launches=profile_launches["rmsnorm_fwd"], shape=f"qwen2-0.5b {RMS_MAIN}",
+             **rms_main["rmsnorm_fwd"]),
         dict(name="rmsnorm_bwd", route="cuda", source=rms_source,
              replaces="src/repro/kernels/rmsnorm.py:18",
-             launches=profile_launches["rmsnorm_bwd"], **rms_main["rmsnorm_bwd"]),
+             launches=profile_launches["rmsnorm_bwd"], shape=f"qwen2-0.5b {RMS_MAIN}",
+             **rms_main["rmsnorm_bwd"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

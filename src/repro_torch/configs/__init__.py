@@ -1,13 +1,9 @@
-"""Architecture registry of the port: ``get_config(arch_id)``.
+"""Architecture registry of the port: ``get_config(arch_id)`` for the 10
+assigned archs, a copy of ``repro.configs``.
 
-A copy of ``repro.configs`` restricted to the architectures whose layer
-kinds the port builds so far: dense attention with GQA, QKV bias, full or
-ChatGLM's "2d" partial RoPE and tied embeddings (qwen2-0.5b, chatglm3-6b,
-phi4-mini-3.8b, qwen2.5-32b), and Mamba2 SSD (mamba2-370m). The other arch
-files arrive with the slices that port their layer kinds (see ROADMAP.md,
-Queue A: MoE, hybrid, cross-attention, encoder). ``reduced_config`` shrinks
-a config to a CPU-runnable smoke-test size while preserving the layer
-pattern.
+File names use underscores (importable modules); arch ids keep the dashed
+form from the assignment. ``reduced_config`` shrinks any config to a
+CPU-runnable smoke-test size while preserving the layer pattern/family.
 """
 
 from __future__ import annotations
@@ -19,10 +15,15 @@ from typing import List
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
 _MODULES = {
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "arctic-480b": "arctic_480b",
     "chatglm3-6b": "chatglm3_6b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-32b": "qwen2_5_32b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "whisper-tiny": "whisper_tiny",
     "mamba2-370m": "mamba2_370m",
 }
 
@@ -33,9 +34,7 @@ def list_archs() -> List[str]:
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: "
-                       f"{list(_MODULES)} (dense attention and Mamba2 SSD layers; no MoE, hybrid, "
-                       f"cross-attention or encoder yet)")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -67,6 +67,11 @@ _CANON = {
     "max_pool2d_with_indices": "reduce_window_max",
     "max_pool2d_with_indices_backward": "select_and_scatter_add",
     "clone": "identity", "copy": "identity", "copy_": "identity",
+    # the MoE router's top-k is a stable descending sort and a slice (see
+    # ``_node_names``), whose gradient autograd scatters back to the sorted
+    # positions; the reference's top_k transposes its gather into a
+    # scatter-add
+    "sort": "top_k", "scatter": "scatter-add",
 }
 
 # aten ops that are a chain of primitives in the reference: ``x[:, 0]`` is
@@ -100,6 +105,12 @@ def canonical(target) -> Optional[str]:
     return _CANON.get(name, name)
 
 
+def _of_sort(src) -> bool:
+    """Whether ``src`` is one of a sort's two outputs."""
+    return (isinstance(src, torch.fx.Node) and src.target is operator.getitem
+            and _name(src.args[0].target) == "sort")
+
+
 def _node_names(node: torch.fx.Node) -> Optional[Tuple[str, ...]]:
     """The chain of reference primitives a node stands for (None when
     transparent): a clamp is ``max`` and/or ``min``, as ``jnp.clip`` is; a
@@ -111,6 +122,8 @@ def _node_names(node: torch.fx.Node) -> Optional[Tuple[str, ...]]:
     transparent."""
     name = _name(node.target)
     args = node.args
+    if name == "slice" and _of_sort(args[0]):
+        return None  # top-k is a sort and this slice, one ``top_k`` in the reference
     if name in ("sum", "mean", "amax") and len(args) > 2 and args[2]:
         # keepdim: the reference reduces, then broadcasts the axis back
         chain = _CHAIN.get(name) or (_CANON[name],)

@@ -241,7 +241,8 @@ def lm_batch_specs(cfg, batch: int, seq: int) -> Dict:
     """``meta`` {tokens, labels[, patches, frames]} train-step inputs.
 
     Single source of truth for the modality conditionals, as in the
-    reference (the port builds neither modality's layers yet).
+    reference: stub image ``patches`` for a cross-attention config, stub
+    audio ``frames`` for an encoder-decoder one, in the activation dtype.
     """
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")

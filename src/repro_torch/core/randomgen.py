@@ -5,8 +5,7 @@ structures. Two grammars, deterministic in seed:
   - random CNNs: staged conv nets sampling kernel sizes, widths, depthwise
     vs dense convs, residual/fire/inception-lite blocks, pooling points;
   - random transformers: StackModel configs sampling width/depth/heads/
-    ff-multiplier/family (dense or MoE or SSM). The port builds the dense and
-    SSM ones; building an MoE one raises, naming ROADMAP Queue A item 5.
+    ff-multiplier/family (dense or MoE or SSM).
 """
 
 from __future__ import annotations

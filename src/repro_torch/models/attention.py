@@ -1,8 +1,9 @@
 """Grouped-query attention: full-sequence (training, prefill) and KV-cache
 decode paths.
 
-Port of ``repro.models.attention`` (self-attention only; cross-attention
-arrives with the VLM and encoder-decoder slice). Projection kernels keep the
+Port of ``repro.models.attention``: causal and non-causal self-attention,
+and cross-attention to a modality memory (no mask, no RoPE, the plain
+``dot_attention`` as in the reference). Projection kernels keep the
 reference's flattened layout, ``wq (D, H*hd)``, ``wk/wv (D, KV*hd)``,
 ``wo (H*hd, D)``; activations are reshaped to (B,S,H,hd). The causal path
 hands GQA K/V with their KV heads to the kernel, which reads them grouped;
@@ -192,6 +193,15 @@ def apply_self_attn(p, cfg, x, positions, causal=True):
     return _out_proj(p, ctx, x.dtype), (k, v)
 
 
+def apply_cross_attn(p, cfg, x, memory):
+    """Cross-attention to (B,M,D) memory (no mask, no RoPE). Returns
+    (y, (k, v)), k/v (B,M,KV,hd) from the memory."""
+    q = _project_q(p, cfg, x)
+    k, v = _project_kv(p, cfg, memory, x.dtype)
+    ctx = dot_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads))
+    return _out_proj(p, ctx, x.dtype), (k, v)
+
+
 def decode_self_attn(p, cfg, x_t, cache, pos):
     """One-token decode. x_t (B,1,D); cache {"k","v"} (B,Smax,KV,hd);
     pos (B,) positions (attention masks per request).
@@ -222,6 +232,15 @@ def decode_self_attn(p, cfg, x_t, cache, pos):
     ctx = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype))
     ctx = ctx.reshape(b, 1, h, hd)
     return _out_proj(p, ctx, x_t.dtype), {"k": k, "v": v}
+
+
+def decode_cross_attn(p, cfg, x_t, cache):
+    """One-token cross-attention to the memory's cached K/V; the cache is
+    returned as it is."""
+    q = _project_q(p, cfg, x_t)
+    ctx = dot_attention(q, _expand_kv(cache["k"].to(q.dtype), cfg.num_heads),
+                        _expand_kv(cache["v"].to(q.dtype), cfg.num_heads))
+    return _out_proj(p, ctx, x_t.dtype), cache
 
 
 def _apply_rope(cfg, x, positions):

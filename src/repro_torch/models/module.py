@@ -10,14 +10,14 @@ initialisers and fan-in scales as the JAX package. The numbers differ from
 Trees are addressed by flat ``"a/b/c"`` keys, the JAX tree path joined by
 ``/``. The reference stacks every layer parameter over the periods of the
 layer pattern (``stack_specs``); the port keeps one module per layer, and
-``unstack_layers`` maps one layout onto the other.
+``port_names`` / ``unstack_layers`` map one layout onto the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -65,21 +65,12 @@ def _fan_in(shape: tuple) -> int:
     return max(1, math.prod(shape[:-1]))
 
 
-def _init_leaf(ps: ParamSpec, generator: torch.Generator, dtype: torch.dtype,
-               device) -> torch.Tensor:
-    dt = ps.dtype or dtype
-    if ps.init == "zeros":
-        return torch.zeros(ps.shape, dtype=dt, device=device)
-    if ps.init == "ones":
-        return torch.ones(ps.shape, dtype=dt, device=device)
+def _scale(ps: ParamSpec) -> float:
     if ps.init == "embed":
-        sc = ps.scale if ps.scale is not None else 1.0
-    else:  # dense-kernel initialisers: normal scaled by fan-in
-        sc = ps.scale if ps.scale is not None else 1.0 / math.sqrt(_fan_in(ps.shape))
-        if ps.init == "small":
-            sc = sc * 0.1
-    draw = torch.randn(ps.shape, generator=generator, dtype=torch.float32, device=device)
-    return (draw * sc).to(dt)
+        return ps.scale if ps.scale is not None else 1.0
+    # dense-kernel initialisers: normal scaled by fan-in
+    sc = ps.scale if ps.scale is not None else 1.0 / math.sqrt(_fan_in(ps.shape))
+    return sc * 0.1 if ps.init == "small" else sc
 
 
 def init_params(spec_tree: Tree, generator: torch.Generator, dtype: torch.dtype,
@@ -89,8 +80,31 @@ def init_params(spec_tree: Tree, generator: torch.Generator, dtype: torch.dtype,
     Leaves draw from ``generator`` one after another in sorted key order, so
     one seed gives one model. ``generator`` must live on ``device``.
     """
-    return {k: _init_leaf(ps, generator, dtype, device)
-            for k, ps in flatten(spec_tree).items()}
+    out = {}
+    for k, ps in flatten(spec_tree).items():
+        out[k] = torch.empty(ps.shape, dtype=ps.dtype or dtype, device=device)
+        fill_leaf(out[k], ps, generator)
+    return out
+
+
+# elements drawn at a time by ``fill_leaf`` (256 MB of fp32)
+_DRAW = 1 << 26
+
+
+def fill_leaf(t: torch.Tensor, ps: ParamSpec, generator: torch.Generator) -> None:
+    """Fill the contiguous tensor ``t`` in place with ``ps``'s initialiser,
+    scaled by ``ps``'s shape (for a layer of a stacked tree, the stacked
+    shape, as in the reference), drawing fp32 normals from ``generator``
+    ``_DRAW`` elements at a time so that no draw as large as ``t`` is held."""
+    if ps.init == "zeros":
+        t.zero_()
+    elif ps.init == "ones":
+        t.fill_(1)
+    else:
+        sc = _scale(ps)
+        for part in t.view(-1).split(_DRAW):
+            part.copy_(torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                                   device=t.device) * sc)
 
 
 def stack_specs(spec_tree: Tree, n: int, axis_name: Optional[str] = None) -> Tree:
@@ -110,23 +124,35 @@ def count_params(spec_tree: Tree) -> int:
     return sum(math.prod(ps.shape) for ps in flatten(spec_tree).values())
 
 
-def unstack_layers(flat: Dict[str, torch.Tensor], period: int) -> Dict[str, torch.Tensor]:
-    """Stacked flat keys -> the port's ``state_dict`` names.
+# stacked subtrees of the reference's tree: the decoder's layers (over the
+# periods of the layer pattern) and the encoder's (period 1)
+_STACKS = ("layers", "encoder")
 
-    ``layers/L{i}/<path>`` with leading period axis ``n`` becomes
-    ``layers.{j*period+i}.<path with dots>`` for each period ``j``; every
-    other key only swaps ``/`` for ``.``.
+
+def port_names(key: str, cfg) -> List[str]:
+    """The port's ``state_dict`` names of a flat spec key.
+
+    ``layers/L{i}/<path>``, stacked over ``n`` periods, names
+    ``layers.{j*period+i}.<path with dots>`` for each period ``j``, and
+    ``encoder/L0/<path>`` names ``encoder.{j}.<path>`` for each encoder
+    layer; any other key only swaps ``/`` for ``.``.
     """
+    parts = key.split("/")
+    if parts[0] not in _STACKS:
+        return [".".join(parts)]
+    period, n = ((cfg.period, cfg.num_periods) if parts[0] == "layers"
+                 else (1, cfg.encoder_layers))
+    i, rest = int(parts[1][1:]), ".".join(parts[2:])
+    return [f"{parts[0]}.{j * period + i}.{rest}" for j in range(n)]
+
+
+def unstack_layers(flat: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """Stacked flat keys -> the port's ``state_dict`` (see ``port_names``)."""
     out = {}
     for key, val in flat.items():
-        parts = key.split("/")
-        if parts[0] != "layers":
-            out[".".join(parts)] = val
-            continue
-        i = int(parts[1][1:])
-        rest = ".".join(parts[2:])
-        for j in range(val.shape[0]):
-            out[f"layers.{j * period + i}.{rest}"] = val[j]
+        stacked = key.split("/")[0] in _STACKS
+        out.update({name: val[j] if stacked else val
+                    for j, name in enumerate(port_names(key, cfg))})
     return out
 
 
@@ -153,4 +179,4 @@ def params_from_jax(cfg, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
         if tuple(arr.shape) != ps.shape:
             raise ValueError(f"{k}: shape {arr.shape}, expected {ps.shape}")
         tensors[k] = torch.from_numpy(arr.astype(np.float32)).to(ps.dtype or dt)
-    return unstack_layers(tensors, cfg.period)
+    return unstack_layers(tensors, cfg)

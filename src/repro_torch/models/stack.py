@@ -1,118 +1,140 @@
-"""The stacked sequence model, as a PyTorch ``nn.Module``.
+"""The stacked sequence model covering all ten architectures, as a PyTorch
+``nn.Module``.
 
-Port of ``repro.models.stack.StackModel``. The reference scans one layer
-body over parameters stacked across the periods of the layer pattern; here
-each layer is its own submodule and the stack is a loop over them. The
-parameters live in the module (``nn.ParameterDict`` per sub-block, named as
-the reference's tree), so the entry points take no ``params`` argument:
+Port of ``repro.models.stack.StackModel``: dense / MoE / hybrid (SSM +
+attention) / VLM (cross-attention) / encoder-decoder (audio) / pure-SSM
+stacks are all instances of a periodic layer pattern of (mixer, mlp) kinds.
+The reference scans one layer body over parameters stacked across the
+periods of the pattern; here each layer is its own submodule and the stack
+is a loop over them. The parameters live in the module (``nn.ParameterDict``
+per sub-block, named as the reference's tree), so the entry points take no
+``params`` argument:
 
   ``loss(batch)``                       training objective (+ metrics)
-  ``forward(batch)``                    full-sequence logits
+  ``forward(batch)``                    full-sequence logits and MoE aux loss
   ``prefill(batch)``                    last-token logits + decode cache
   ``decode_step(cache, tokens, pos)``   one-token serving step
 
-The layer kinds ported so far are dense attention, ``("attn", "dense")``,
-and Mamba2 SSD, ``("ssm", "none")``; any other kind raises. The decode
-cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
+Mixers: ``attn`` (causal self-attention), ``ssm`` (Mamba2 SSD), ``cross``
+(gated cross-attention to the batch's stub ``patches``) and ``attn_cross``
+(self-attention, then cross-attention to the encoder's output); MLPs:
+``none``, ``dense``, ``moe`` and ``moe_dense`` (MoE plus a parallel dense
+branch). An encoder-decoder config runs ``encoder_layers`` non-causal
+layers over the batch's stub ``frames`` first, as the reference writes it,
+whether or not a decoder layer reads their output. The decode cache is a
+list with one dict per layer: ``{"k", "v"}`` for attention (for ``cross``
+sized to the memory), plus ``{"xk", "xv"}`` for ``attn_cross``, and
 ``{"state", "conv_x", "conv_b", "conv_c"}`` for SSD (the state in fp32).
 
-Under autograd, ``cfg.remat == "full"`` (the default) runs each period of
-layers as one ``torch.utils.checkpoint`` region, the reference's
-``jax.checkpoint`` around its scan body: only the period's input is kept,
-and its activations are recomputed in the backward pass.
+Under autograd, ``cfg.remat`` picks the reference's ``jax.checkpoint``
+around its scan body: ``"full"`` (the default) runs each period of layers,
+and each encoder layer, as one ``torch.utils.checkpoint`` region, keeping
+only its input; ``"dots"`` keeps the outputs of the region's unbatched
+matrix products (``mm``, ``addmm``: the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest; ``"none"``
+keeps everything.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, List
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.module import (Tree, count_params, init_params, stack_specs,
-                                       unstack_layers)
-
-# Mixer and MLP kinds of the layer kinds the port cannot build yet, and the
-# ROADMAP Queue A item that ports each of them. Any other combination (an
-# SSM layer with a dense MLP, as in jamba) is left to item 6.
-_UNPORTED = {
-    "moe": "Queue A item 5 (models/moe.py)",
-    "moe_dense": "Queue A item 5 (models/moe.py)",
-    "cross": "Queue A item 6 (VLM cross-attention in models/stack.py)",
-    "attn_cross": "Queue A item 6 (encoder-decoder in models/stack.py)",
-}
+from repro_torch.models.module import (ParamSpec, Tree, count_params, fill_leaf, flatten,
+                                       port_names, spec, stack_specs)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+ENCODER_KIND = ("enc_attn", "dense")
+REMATS = ("none", "dots", "full")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _param_dict(flat: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in flat.items()})
+def _params(sub, dtype: torch.dtype, device):
+    """One entry of a layer's spec, allocated: a sub-block's
+    ``nn.ParameterDict``, or a single parameter (a cross layer's gate)."""
+    def one(ps):
+        return nn.Parameter(torch.empty(ps.shape, dtype=ps.dtype or dtype, device=device))
+    if isinstance(sub, ParamSpec):
+        return one(sub)
+    return nn.ParameterDict({k: one(ps) for k, ps in sub.items()})
 
 
-def _empty(spec_tree: Tree, dtype: torch.dtype, device) -> nn.ParameterDict:
-    return _param_dict({k: torch.empty(ps.shape, dtype=ps.dtype or dtype, device=device)
-                        for k, ps in spec_tree.items()})
+def _add(aux, a):
+    return a if aux is None else aux if a is None else aux + a
 
 
 class _Layer(nn.Module):
-    """One decoder layer of kind ``KIND``, holding the parameters of its spec.
+    """One layer of ``kind`` = (mixer, mlp), holding the parameters of its
+    spec. ``forward(x, positions, memory)`` returns the new residual stream,
+    the layer's entry of the decode cache and its MoE aux loss (None without
+    MoE); ``decode(x, cache, pos)`` takes and returns that entry;
+    ``cache_spec`` gives the entry's {name: (shape, dtype)}."""
 
-    ``forward`` returns the new residual stream and the layer's entry of the
-    decode cache; ``decode`` takes and returns that entry; ``cache_spec``
-    gives the entry's {name: (shape, dtype)}.
-    """
-
-    KIND: tuple
-
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: tuple, dtype: torch.dtype, device):
         super().__init__()
-        self.cfg = cfg
-        for name, sub in StackModel.layer_spec(cfg, self.KIND).items():
-            setattr(self, name, _empty(sub, dtype, device))
+        self.cfg, self.kind = cfg, kind
+        for name, sub in StackModel.layer_spec(cfg, kind).items():
+            setattr(self, name, _params(sub, dtype, device))
+
+    def _mlp(self, x):
+        """The pre-norm MLP block on the residual stream: (x, aux or None)."""
+        mlp = self.kind[1]
+        if mlp == "none":
+            return x, None
+        h = L.apply_norm(self.norm2, x)
+        if mlp == "dense":
+            return x + L.apply_mlp(self.mlp, h), None
+        y, aux = moe_lib.apply_moe(self.mlp, self.cfg, h)
+        if mlp == "moe_dense":
+            y = y + L.apply_mlp(self.mlp_dense, h)
+        return x + y, aux
+
+    def _kv_spec(self, batch: int, seq: int, dtype: torch.dtype, prefix: str = ""):
+        return {prefix + k: (shp, dtype)
+                for k, shp in attn.kv_cache_shape(self.cfg, batch, seq).items()}
 
 
-class DenseAttnLayer(_Layer):
-    """One ``("attn", "dense")`` decoder layer: pre-norm attention + SwiGLU."""
+class AttnLayer(_Layer):
+    """Pre-norm causal self-attention, then the layer's MLP."""
 
-    KIND = ("attn", "dense")
-
-    def forward(self, x, positions):
+    def forward(self, x, positions, memory=None):
         y, (k, v) = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
                                          positions)
-        x = x + y
-        x = x + L.apply_mlp(self.mlp, L.apply_norm(self.norm2, x))
-        return x, {"k": k, "v": v}
+        x, aux = self._mlp(x + y)
+        return x, {"k": k, "v": v}, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
-        return {k: (shp, dtype) for k, shp in attn.kv_cache_shape(self.cfg, batch, seq).items()}
+        return self._kv_spec(batch, seq, dtype)
 
     def decode(self, x, cache, pos):
         y, cache = attn.decode_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
                                          cache, pos)
-        x = x + y
-        x = x + L.apply_mlp(self.mlp, L.apply_norm(self.norm2, x))
-        return x, cache
+        return self._mlp(x + y)[0], cache
 
 
 class SSMLayer(_Layer):
-    """One ``("ssm", "none")`` Mamba2 layer: pre-norm SSD mixer, no MLP."""
+    """Pre-norm Mamba2 SSD mixer, then the layer's MLP (none in Mamba2)."""
 
-    KIND = ("ssm", "none")
-
-    def forward(self, x, positions):
+    def forward(self, x, positions, memory=None):
         y, cache = ssm_lib.apply_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
                                      return_cache=True)
-        return x + y, cache
+        x, aux = self._mlp(x + y)
+        return x, cache, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
         # no sequence axis; the state stays fp32
@@ -121,37 +143,109 @@ class SSMLayer(_Layer):
 
     def decode(self, x, cache, pos):
         y, cache = ssm_lib.decode_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x), cache)
-        return x + y, cache
+        return self._mlp(x + y)[0], cache
 
 
-_LAYERS = {cls.KIND: cls for cls in (DenseAttnLayer, SSMLayer)}
+class CrossLayer(_Layer):
+    """Pre-norm cross-attention to the image memory, scaled by
+    ``tanh(gate_attn)`` (zero at init), then the layer's MLP. Its cache
+    holds the memory's K/V."""
+
+    def _gated(self, y):
+        return y * torch.tanh(self.gate_attn).to(y.dtype)
+
+    def forward(self, x, positions, memory):
+        y, (k, v) = attn.apply_cross_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                          memory)
+        x, aux = self._mlp(x + self._gated(y))
+        return x, {"k": k, "v": v}, aux
+
+    def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
+        return self._kv_spec(batch, self.cfg.vision_seq, dtype)
+
+    def decode(self, x, cache, pos):
+        y, cache = attn.decode_cross_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                          cache)
+        return self._mlp(x + self._gated(y))[0], cache
 
 
-def _run_period(layers, x, positions):
+class AttnCrossLayer(_Layer):
+    """Pre-norm causal self-attention, then pre-norm (``norm_x``)
+    cross-attention to the encoder's output, then the layer's MLP."""
+
+    def forward(self, x, positions, memory):
+        y, (k, v) = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                         positions)
+        x = x + y
+        y, (xk, xv) = attn.apply_cross_attn(self.cross, self.cfg, L.apply_norm(self.norm_x, x),
+                                            memory)
+        x, aux = self._mlp(x + y)
+        return x, {"k": k, "v": v, "xk": xk, "xv": xv}, aux
+
+    def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
+        return {**self._kv_spec(batch, seq, dtype),
+                **self._kv_spec(batch, self.cfg.audio_seq, dtype, prefix="x")}
+
+    def decode(self, x, cache, pos):
+        y, sc = attn.decode_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                      {"k": cache["k"], "v": cache["v"]}, pos)
+        x = x + y
+        y, _ = attn.decode_cross_attn(self.cross, self.cfg, L.apply_norm(self.norm_x, x),
+                                      {"k": cache["xk"], "v": cache["xv"]})
+        return self._mlp(x + y)[0], {**sc, "xk": cache["xk"], "xv": cache["xv"]}
+
+
+class EncoderLayer(_Layer):
+    """One ``("enc_attn", "dense")`` encoder layer: pre-norm non-causal
+    self-attention and the dense MLP; no cache."""
+
+    def forward(self, x, positions):
+        y, _ = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+                                    positions, causal=False)
+        return self._mlp(x + y)[0]
+
+
+_MIXERS = {"attn": AttnLayer, "ssm": SSMLayer, "cross": CrossLayer,
+           "attn_cross": AttnCrossLayer}
+
+
+def _run_period(layers, x, positions, memory):
+    aux = None
     for layer in layers:
-        x, _ = layer(x, positions)
-    return x
+        x, _, a = layer(x, positions, memory)
+        aux = _add(aux, a)
+    return x, aux
+
+
+# the reference's dots_with_no_batch_dims_saveable: matrix products with no
+# batch dimension (``x @ w`` of a layer lowers to mm/addmm; the attention and
+# MoE einsums, with batch dimensions, to bmm)
+_SAVED_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class StackModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        for kind in cfg.pattern():
-            if kind not in _LAYERS:
-                mixer, mlp = kind
-                todo = _UNPORTED.get(mlp) or _UNPORTED.get(mixer) or \
-                    "Queue A item 6 (the other layer kinds in models/stack.py)"
-                raise NotImplementedError(
-                    f"{cfg.name}: layer kind {kind} is not ported to PyTorch yet; "
-                    f"ROADMAP {todo} ports it")
+        if cfg.remat not in REMATS:
+            raise ValueError(f"{cfg.name}: remat {cfg.remat!r} not in {REMATS}")
         self.cfg = cfg
         self.dtype = dtype_of(cfg)
         self.pattern = cfg.pattern()
         spec_tree = self.param_spec()
-        self.embed = _empty(spec_tree["embed"], self.dtype, device)
-        self.layers = nn.ModuleList(_LAYERS[self.pattern[i % cfg.period]](cfg, self.dtype, device)
-                                    for i in range(cfg.num_layers))
-        self.final_norm = _empty(spec_tree["final_norm"], self.dtype, device)
+        self.embed = _params(spec_tree["embed"], self.dtype, device)
+        kinds = [self.pattern[i % cfg.period] for i in range(cfg.num_layers)]
+        self.layers = nn.ModuleList(_MIXERS[kind[0]](cfg, kind, self.dtype, device)
+                                    for kind in kinds)
+        self.final_norm = _params(spec_tree["final_norm"], self.dtype, device)
+        if cfg.is_encoder_decoder:
+            self.encoder = nn.ModuleList(EncoderLayer(cfg, ENCODER_KIND, self.dtype, device)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = _params(spec_tree["enc_norm"], self.dtype, device)
 
     # ------------------------------------------------------------------
     # Parameter specs
@@ -160,30 +254,64 @@ class StackModel(nn.Module):
     def layer_spec(cfg: ModelConfig, kind: tuple) -> Tree:
         """The reference's parameter tree of one layer of ``kind``."""
         mixer, mlp = kind
-        p = {"norm1": L.norm_spec(cfg)}
-        p["mixer"] = ssm_lib.ssm_spec(cfg) if mixer == "ssm" else attn.attn_spec(cfg)
+        p: Tree = {"norm1": L.norm_spec(cfg)}
+        if mixer in ("attn", "enc_attn"):
+            p["mixer"] = attn.attn_spec(cfg)
+        elif mixer == "cross":
+            p["mixer"] = attn.attn_spec(cfg)
+            p["gate_attn"] = spec((), (), "zeros", dtype=torch.float32)
+        elif mixer == "attn_cross":
+            p["mixer"] = attn.attn_spec(cfg)
+            p["norm_x"] = L.norm_spec(cfg)
+            p["cross"] = attn.attn_spec(cfg)
+        elif mixer == "ssm":
+            p["mixer"] = ssm_lib.ssm_spec(cfg)
+        else:
+            raise ValueError(f"unknown mixer kind {mixer!r}")
+        if mlp not in ("none", "dense", "moe", "moe_dense"):
+            raise ValueError(f"unknown mlp kind {mlp!r}")
         if mlp != "none":
             p["norm2"] = L.norm_spec(cfg)
+        if mlp == "dense":
             p["mlp"] = L.mlp_spec(cfg)
+        elif mlp in ("moe", "moe_dense"):
+            p["mlp"] = moe_lib.moe_spec(cfg)
+        if mlp == "moe_dense":
+            p["mlp_dense"] = L.mlp_spec(cfg)
         return p
 
     @staticmethod
     def param_spec_of(cfg: ModelConfig) -> Tree:
-        """The reference's spec tree: layer parameters stacked over periods."""
+        """The reference's spec tree: layer parameters stacked over periods,
+        the encoder's over its layers."""
         layer_specs = {f"L{i}": StackModel.layer_spec(cfg, kind)
                        for i, kind in enumerate(cfg.pattern())}
-        return {
+        tree = {
             "embed": L.embed_spec(cfg),
             "layers": stack_specs(layer_specs, cfg.num_periods, None),
             "final_norm": L.norm_spec(cfg),
         }
+        if cfg.is_encoder_decoder:
+            enc = {"L0": StackModel.layer_spec(cfg, ENCODER_KIND)}  # encoder period is 1
+            tree["encoder"] = stack_specs(enc, cfg.encoder_layers, None)
+            tree["enc_norm"] = L.norm_spec(cfg)
+        return tree
 
     def param_spec(self) -> Tree:
         return self.param_spec_of(self.cfg)
 
     def param_count(self, active_only: bool = False) -> int:
-        # No MoE layer is ported yet: every parameter is active.
-        return count_params(self.param_spec())
+        spec_tree = self.param_spec()
+        total = count_params(spec_tree)
+        cfg = self.cfg
+        if not active_only or not cfg.num_experts:
+            return total
+        # Scale expert tensors by top_k / num_experts.
+        inactive = 0
+        for key, ps in flatten(spec_tree).items():
+            if "mlp" in key.split("/") and "experts" in ps.axes:
+                inactive += int(math.prod(ps.shape) * (1 - cfg.top_k / cfg.num_experts))
+        return total - inactive
 
     @property
     def device(self) -> torch.device:
@@ -191,10 +319,15 @@ class StackModel(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "StackModel":
-        """Fill every parameter with the reference's initialisers, drawn from
-        ``generator`` (which lives on the model's device)."""
-        flat = init_params(self.param_spec(), generator, self.dtype, self.device)
-        self.load_state_dict(unstack_layers(flat, self.cfg.period))
+        """Fill every parameter with the reference's initialisers and fan-in
+        scales, drawn from ``generator`` (which lives on the model's device):
+        leaf by leaf in sorted key order, a stacked leaf one layer at a time
+        (``fill_leaf``), so no draw is held beside the model but a bounded
+        one. One seed gives one model."""
+        params = dict(self.named_parameters())
+        for key, ps in flatten(self.param_spec()).items():
+            for name in port_names(key, self.cfg):
+                fill_leaf(params[name], ps, generator)
         return self
 
     # ------------------------------------------------------------------
@@ -203,31 +336,52 @@ class StackModel(nn.Module):
     def _positions(self, s: int):
         return torch.arange(s, dtype=torch.int32, device=self.device)[None, :]
 
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under the config's remat policy while autograd
+        records, else as it is."""
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
+        if remat == "none":
+            return fn(*args)
+        kw = {}
+        if remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+        # the model draws no random numbers
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    def _encode(self, frames):
+        """Whisper-style encoder over stub frame embeddings (B,M,D)."""
+        x = frames.to(self.dtype)
+        positions = self._positions(x.shape[1])
+        for layer in self.encoder:
+            x = self._remat(layer, x, positions)
+        return L.apply_norm(self.enc_norm, x)
+
+    def _memory_of(self, batch):
+        if self.cfg.is_encoder_decoder:
+            return self._encode(batch["frames"])
+        if self.cfg.cross_every:
+            return batch["patches"].to(self.dtype)
+        return None
+
     def forward(self, batch):
-        """batch: {"tokens": (B,S) int}. -> (logits (B,S,V_padded) fp32, aux)."""
+        """batch: {"tokens": (B,S) int[, "patches" | "frames": (B,M,D)]}.
+        -> (logits (B,S,V_padded) fp32, aux: the MoE layers' summed aux loss,
+        fp32, 0 without MoE)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = L.embed_tokens(self.embed, tokens, self.dtype)
-        x = self._run_stack(x, self._positions(tokens.shape[1]))
+        positions = self._positions(tokens.shape[1])
+        memory = self._memory_of(batch)
+        aux = None
+        for i in range(0, len(self.layers), cfg.period):
+            x, a = self._remat(_run_period, self.layers[i:i + cfg.period], x, positions, memory)
+            aux = _add(aux, a)
         x = L.apply_norm(self.final_norm, x)
         logits = L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size)
-        return logits, torch.zeros((), dtype=torch.float32, device=self.device)
-
-    def _run_stack(self, x, positions):
-        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
-        if remat not in ("none", "full"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: remat={remat!r} is not ported to PyTorch yet; ROADMAP "
-                "Queue A item 6 ports it (selective checkpointing of matrix products)")
-        period = self.cfg.period
-        for i in range(0, len(self.layers), period):
-            layers = self.layers[i:i + period]
-            if remat == "full":
-                x = checkpoint(_run_period, layers, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)  # the model draws no random numbers
-            else:
-                x = _run_period(layers, x, positions)
-        return x
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return logits, aux
 
     def loss(self, batch):
         logits, aux = self.forward(batch)
@@ -250,14 +404,16 @@ class StackModel(nn.Module):
     @torch.no_grad()
     def prefill(self, batch):
         """Full-sequence forward that also builds the decode cache, sized to
-        the prompt. Returns (last_token_logits (B,1,V_padded), cache)."""
+        the prompt (a cross layer's to the memory). Returns
+        (last_token_logits (B,1,V_padded), cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = L.embed_tokens(self.embed, tokens, self.dtype)
         positions = self._positions(tokens.shape[1])
+        memory = self._memory_of(batch)
         cache = []
         for layer in self.layers:
-            x, entry = layer(x, positions)
+            x, entry, _ = layer(x, positions, memory)
             cache.append(entry)
         x = L.apply_norm(self.final_norm, x[:, -1:])
         return L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size), cache

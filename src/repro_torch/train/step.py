@@ -42,7 +42,10 @@ class _LossAndGrads(nn.Module):
 
     def forward(self, leaves, batch):
         loss, metrics = self.model.loss(batch)
-        return loss, metrics, torch.autograd.grad(loss, leaves)
+        # a parameter the loss does not read (whisper's encoder: no decoder
+        # layer attends to it) gets a zero gradient, as under jax.grad
+        return loss, metrics, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                  materialize_grads=True)
 
 
 def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):

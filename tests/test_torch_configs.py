@@ -2,7 +2,9 @@
 chatglm3-6b (QKV bias, "2d" partial RoPE, 16:1 grouped KV), phi4-mini-3.8b
 (tied embeddings) and qwen2.5-32b (QKV bias), each reduced and held against
 the JAX reference with its weights carried across by ``params_from_jax``;
-full-width parameter counts against the reference's."""
+the registry of all ten archs, and full-width parameter counts, total and
+active, against the reference's (the MoE, hybrid, VLM and audio archs'
+models are held in tests/test_torch_hybrid.py)."""
 
 import dataclasses
 
@@ -36,6 +38,38 @@ def pair(request):
 def _tokens(vocab, s=S):
     t = (np.arange(B * s, dtype=np.int32).reshape(B, s) * 7) % (vocab - 1)
     return jnp.asarray(t), torch.from_numpy(t)
+
+
+# the reference's counts (repro.models.api.build_model(cfg).param_count(),
+# total and active_only=True)
+FULL_COUNTS = {
+    "moonshot-v1-16b-a3b": (28_057_995_264, 3_974_301_696),
+    "arctic-480b": (476_850_275_328, 15_584_314_368),
+    "jamba-v0.1-52b": (51_460_000_640, 11_999_988_608),
+    "llama-3.2-vision-90b": (87_666_794_516, 87_666_794_516),
+    "whisper-tiny": (58_799_616, 58_799_616),
+}
+
+
+def test_registry_lists_all_ten_archs():
+    from repro.configs import list_archs as jax_list_archs
+    assert list_archs() == jax_list_archs() and len(list_archs()) == 10
+    for arch in list_archs():
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+
+
+@pytest.mark.parametrize("arch", list(FULL_COUNTS))
+def test_full_config_param_counts_match_the_reference(arch):
+    total, active = FULL_COUNTS[arch]
+    model = build_model(get_config(arch), device="meta")
+    assert model.param_count() == total
+    assert model.param_count(active_only=True) == active
+    jm = jax_build(jax_get_config(arch))
+    assert (jm.param_count(), jm.param_count(active_only=True)) == (total, active)
+    cfg = get_config(arch)
+    assert (cfg.param_count(), cfg.active_param_count()) == (total, active)
 
 
 def test_registry_lists_the_dense_configs():
@@ -87,6 +121,6 @@ def test_full_config_param_count(arch):
 
 
 def test_reduced_configs_agree():
-    for arch in ARCHS:
+    for arch in list_archs():
         assert (dataclasses.asdict(reduced_config(get_config(arch)))
                 == dataclasses.asdict(jax_reduced(jax_get_config(arch))))

@@ -15,7 +15,7 @@ from _torch_parity import MODEL_TOL, TOL, close, port_model, torch_cfg  # noqa: 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import ModelConfig, get_config, reduced_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 
@@ -121,12 +121,28 @@ def test_full_config_param_count():
     assert cfg.active_param_count() == cfg.param_count()
 
 
+class _UnknownMixer(ModelConfig):
+    def layer_kind(self, i):
+        return ("conv", "dense")
+
+
+class _UnknownMlp(ModelConfig):
+    def layer_kind(self, i):
+        return ("attn", "glu")
+
+
 def test_unported_layer_kind_raises():
-    # SSM layers are ported (tests/test_torch_ssm.py); MoE layers are not yet
-    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")), num_experts=4,
-                              top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        build_model(cfg, device="cpu")
+    """Every layer kind of the reference is ported (MoE: tests/test_torch_moe.py;
+    hybrid, cross-attention, encoder: tests/test_torch_hybrid.py). A mixer
+    kind the reference does not have raises ValueError, as in the reference,
+    and so does an MLP kind (which the reference leaves without an MLP)."""
+    fields = dataclasses.asdict(reduced_config(get_config("qwen2-0.5b")))
+    with pytest.raises(ValueError, match="mixer kind 'conv'"):
+        build_model(_UnknownMixer(**fields), device="cpu")
+    with pytest.raises(ValueError, match="conv"):
+        jax_build(_UnknownMixer(**fields)).param_spec()
+    with pytest.raises(ValueError, match="mlp kind 'glu'"):
+        build_model(_UnknownMlp(**fields), device="cpu")
 
 
 def test_init_is_seeded_and_finite():

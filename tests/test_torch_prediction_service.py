@@ -394,7 +394,9 @@ REF, PORT = "repro", "repro_torch"
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m", "chatglm3-6b",
-                                  "phi4-mini-3.8b", "qwen2.5-32b"])
+                                  "phi4-mini-3.8b", "qwen2.5-32b", "moonshot-v1-16b-a3b",
+                                  "arctic-480b", "jamba-v0.1-52b", "llama-3.2-vision-90b",
+                                  "whisper-tiny"])
 def test_fingerprints_agree_across_packages(arch):
     ref, port = _bind(REF), _bind(PORT)
     for make in (lambda p: p.get_config(arch), lambda p: p.reduced_config(p.get_config(arch))):
@@ -404,7 +406,8 @@ def test_fingerprints_agree_across_packages(arch):
     assert ref.config_fingerprint(_GnarlyCfg()) == port.config_fingerprint(_GnarlyCfg())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m", "moonshot-v1-16b-a3b",
+                                  "whisper-tiny"])
 def test_trace_query_record_matches_the_reference(arch):
     from repro_torch.core import profiler as tprof
     from repro_torch.core.features import PLATFORM_TORCH_CUDA
@@ -413,6 +416,8 @@ def test_trace_query_record_matches_the_reference(arch):
     want = ref.trace_query(jcfg, 2, 32)
     got = port.trace_query(torch_cfg(jcfg), 2, 32)
     # FLOPs included: both carry the online formula 6 * active params * B * S
+    from repro.models import build_model as jax_build
+    assert got.flops == 6.0 * jax_build(jcfg).param_count(active_only=True) * 2 * 32
     skip = {"nsm_edges", "platform", "extra"}
     for f in dataclasses.fields(got):
         if f.name not in skip:

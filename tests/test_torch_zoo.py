@@ -74,20 +74,24 @@ def test_random_cnn_same_structure(seed):
 
 
 def test_random_lm_config_equal_and_moe_raises():
+    """Every random LM draw equals the reference's and builds, the MoE ones
+    (seeds 7 and 11 of collect.py's random grid) included, with the
+    reference's parameter counts, total and active."""
     from repro.configs.base import ModelConfig as JConfig
+    from repro.models import build_model as jax_build
     from repro_torch.models import build_model
     kinds = set()
     for seed in range(12):
         cfg = trand.random_lm_config(seed)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jrand.random_lm_config(seed))
+        jcfg = jrand.random_lm_config(seed)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert isinstance(cfg, ModelConfig) and not isinstance(cfg, JConfig)
         kinds.add(cfg.family)
-        if cfg.family == "moe":
-            with pytest.raises(NotImplementedError, match="Queue A item 5"):
-                build_model(cfg, device="meta")
-        else:
-            assert build_model(cfg, device="meta").param_count() > 0
+        model = build_model(cfg, device="meta")
+        for active in (False, True):
+            assert model.param_count(active) == jax_build(jcfg).param_count(active) > 0
     assert {"moe", "dense", "ssm"} <= kinds
+    assert [trand.random_lm_config(s).family for s in (7, 11)] == ["moe", "moe"]
 
 
 @pytest.mark.parametrize("size,k,stride,pads", [
