@@ -76,7 +76,9 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    side in spawned worker processes, and phase 13 runs on the card
    meanwhile;
 12. the fifth main path, the online query: ``DNNAbacus.service()`` over a
-   predictor fitted on every record but qwen2-0.5b's, asked cold and warm
+   predictor fitted on every record but qwen2-0.5b's, with a fresh
+   segment-log ``TraceStore`` under ``build/fleet`` that its cold queries
+   write through to (one record a key), asked cold and warm
    about qwen2-0.5b at phase 10's points and chatglm3-6b, phi4-mini-3.8b,
    qwen2.5-32b and the MoE moonshot-v1-16b-a3b at (8, 2048) (one trace a
    key, identical warm answers at least 10x faster, each qwen2-0.5b record
@@ -98,15 +100,32 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    whisper-tiny whole (its LayerNorm plain, its encoder's attention
    non-causal and plain); then moonshot's prefill flash call, 16 heads of
    128 over 16 KV heads, timed beside SDPA and the bound. It runs while
-   phase 11's fits run in their worker processes.
+   phase 11's fits run in their worker processes;
+14. the seventh main path, the serving fleet's loop around phase 12's
+   service (``fleet_phase``): a ``ClusterFrontend`` over two in-process
+   ``GatewayReplica``s and one ``RemoteReplica`` (``spawn_replica``, a
+   ``python -m repro_torch.serve.rpc`` child), all over phase 12's trace
+   store and one feedback store. Each replica answers phase 12's seven
+   keys from the store (equal to phase 12's estimates, 0 traces), then one
+   burst from ``FLEET_TENANTS`` through the frontend; the child reports no
+   CUDA context. The qwen2-0.5b jobs are admitted on one ``Machine`` of the
+   card's memory and run as phase 10's ``profile_lm`` calls (launches
+   counted, each record equal to phase 10's but for time and memory), their
+   measured costs reported (``report_completion``), the predictor refit on
+   phase 12's records and the feedback and published as generation 1 to
+   every replica, the RPC one over the wire; the keys are asked again
+   (``{"refit": ...}``: generation 0's and 1's errors against the measured
+   costs, and the calibration window), and a replica that sheds
+   everything answers from the H100 floor; then the fleet's stats and the
+   phase's wall time split.
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
 and must be 0); its LM records' steps run the RMSNorm kernels, counted
-around each ``profile_lm`` call. Nothing in phases 11 and 12 is caught: a
+around each ``profile_lm`` call. Nothing in phases 11, 12 and 14 is caught: a
 record, a query or a kernel that fails fails the run.
 Phases 3, 6, 12 and 13 run their plain side with every kernel pinned plain;
-phases 4, 7, 12 and 13 count the RMSNorm kernel too (one launch a norm,
+phases 4, 7, 12, 13 and 14 count the RMSNorm kernel too (one launch a norm,
 each prefill and each decode step). Any failed check raises, so the script exits
 nonzero without the final line; so it does without a card, or away from the
 repository's sources.
@@ -121,12 +140,16 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+# phase 12's trace store and phase 14's fleet: made anew each run (build/ is
+# not committed)
+FLEET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fleet")
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # fp32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12
@@ -257,6 +280,25 @@ MOONSHOT_ATTN_SHAPE = (8, 2081, 16, 128)  # its serving prefill: 16 heads of 128
 JAMBA_SSD_SHAPE = (8, 2081, 128, 64, 16, 64)  # its serving prefill: 128 heads, P 64, N 16
 SERVE_BATCH, PROMPT, STEPS = 8, 2048, 32
 MODEL_CHECK_BATCH, MODEL_CHECK_SEQ = 2, 300  # ragged against the kernels' 32- and 64-row tiles
+# phase 14: the serving fleet around phase 12's service. Two in-process
+# gateway replicas and one RPC replica share phase 12's trace store and one
+# feedback store; phase 12's keys come in one burst from FLEET_TENANTS,
+# FLEET_REPEATS times each, and are answered from the store with no trace;
+# the qwen2-0.5b jobs are admitted on one card and run as in phase 10, their
+# measured costs reported, the predictor refit and published as generation 1.
+# A burst's micro-batches run the ensembles over several rows at once, which
+# moves an estimate by a few ulps against phase 12's one-row pass: the burst's
+# estimates hold to FLEET_BATCH_RTOL, the one-query-a-tick answers exactly.
+FLEET_TENANTS = ("tenant-a", "tenant-b", "tenant-c")
+FLEET_REPEATS = 2
+# the jobs admitted and run: phase 10's main point only, cut from its three
+# for the script's time (each job is a ~21 s profile_lm call, and the refit
+# takes ~37 s on the host: 1091 s of command with all three, on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+FLEET_JOB_POINTS = [(8, 2048)]
+FLEET_BATCH_RTOL = 1e-12
+FLEET_STARTUP_TIMEOUT = 120.0  # seconds for the RPC child to import torch and listen
+
 DEVICE = "cuda"
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
 
@@ -1178,8 +1220,9 @@ def lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters):
 def experiment_phase(np, records, tzoo, meanwhile):
     """DNNAbacus on the card's records, as the reference's bench_mre.py and
     bench_unseen.py fit it, its MREs printed as one JSON line; fitted with
-    phase 12's predictor beside them, which is returned. ``meanwhile`` (phase
-    13) runs in this process while the fits run in theirs."""
+    phase 12's predictor beside them, which is returned with the records it
+    was fitted on. ``meanwhile`` (phase 13) runs in this process while the
+    fits run in theirs."""
     from repro_torch.core.baselines import MLPBaseline, shape_inference_memory
     from repro_torch.core.features import design_matrix, mre, targets
     print(f"== phase 11: DNNAbacus fitted on the card's {len(records)} records")
@@ -1246,24 +1289,35 @@ def experiment_phase(np, records, tzoo, meanwhile):
         out[f"unseen_mem_mre[{rep}]"] = evu["mem_mre"]
     out["n_seen"], out["n_unseen"] = len(seen), len(unseen)
     print(json.dumps({"mre": out}))
-    return models["service"]
+    return models["service"], unqueried
+
+
+def service_queries(get_config):
+    """Phase 12's queries: qwen2-0.5b at ``PROFILE_POINTS``, then
+    ``SERVICE_ARCHS`` at ``SERVICE_POINT``."""
+    return ([(get_config(SERVICE_UNSEEN), b, s) for b, s in PROFILE_POINTS]
+            + [(get_config(arch), *SERVICE_POINT) for arch in SERVICE_ARCHS])
 
 
 def service_phase(torch, np, abacus, qwen_records, get_config):
     """Phase 12: the online query. ``abacus`` was fitted on every corpus record
     but qwen2-0.5b's, whose phase 10 records (``qwen_records``, one per
     ``PROFILE_POINTS``) are the truth for its answers. Cold queries through
-    ``abacus.service()`` (one trace a key), the same queries warm (cache hits,
-    identical estimates, ``WARM_SPEEDUP_MIN`` times faster at the median),
-    ``predict_config`` against ``predict_one``, each qwen2-0.5b record of the
-    service against phase 10's (equal but for FLOPs, time and memory), and
-    one JSON line a query."""
+    ``abacus.service()`` over a fresh segment-log ``TraceStore`` under
+    ``FLEET_DIR`` (one trace a key, each written through to the store), the
+    same queries warm (cache hits, identical estimates, ``WARM_SPEEDUP_MIN``
+    times faster at the median), ``predict_config`` against ``predict_one``,
+    each qwen2-0.5b record of the service against phase 10's (equal but for
+    FLOPs, time and memory), and one JSON line a query. Returns the cold
+    estimates, in ``service_queries`` order."""
     from repro_torch.core.predictor import HBM_PER_DEVICE
+    from repro_torch.serve.trace_store import SegmentTraceStore
     print(f"== phase 12 (main path): the online query through DNNAbacus.service(), fitted "
           f"without {SERVICE_UNSEEN}")
-    svc = abacus.service()
-    queries = ([(get_config(SERVICE_UNSEEN), b, s) for b, s in PROFILE_POINTS]
-               + [(get_config(arch), *SERVICE_POINT) for arch in SERVICE_ARCHS])
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    svc = abacus.service(store=SegmentTraceStore(os.path.join(FLEET_DIR, "traces")))
+    check(svc.store is not None, "the service did not take the trace store")
+    queries = service_queries(get_config)
     keys = {svc.cache_key(*q) for q in queries}
     cold, cold_times = [], []
     for cfg, b, s in queries:
@@ -1274,6 +1328,8 @@ def service_phase(torch, np, abacus, qwen_records, get_config):
     traced = svc.stats.traces
     check(traced == len(keys) and svc.stats.misses == len(keys),
           f"{traced} traces and {svc.stats.misses} misses for {len(keys)} distinct keys")
+    check(svc.store.stats.writes == len(keys) and len(svc.store) == len(keys),
+          f"trace store {svc.store.info()} after {len(keys)} cold keys")
     again, warm = [], []
     for cfg, b, s in queries:
         t0 = time.perf_counter()
@@ -1322,7 +1378,240 @@ def service_phase(torch, np, abacus, qwen_records, get_config):
                         offline_mem_rel_err=abs(m_off - truth.mem_bytes) / truth.mem_bytes)
         print(json.dumps({"query": line}))
     print(f"{SERVICE_UNSEEN}'s service records equal profile_lm's at {PROFILE_POINTS} but for "
-          f"FLOPs, time and memory (NSM and traced FLOPs included)")
+          f"FLOPs, time and memory (NSM and traced FLOPs included); trace store "
+          f"{svc.store.info()}")
+    return cold
+
+
+def impl_switches():
+    """The three kernels' impl switches as this thread sees them."""
+    from repro_torch.models import attention, layers, ssm
+    return (attention.get_attention_impl(), ssm.get_ssd_impl(), layers.get_norm_impl())
+
+
+def fleet_estimates(replica, queries):
+    """One replica's answers to ``queries``, one query a tick, each timed."""
+    out, times = [], []
+    for cfg, b, s in queries:
+        t0 = time.perf_counter()
+        out.append(replica.submit(cfg, b, s).result(600))
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def same_estimate(got, want, rtol: float = 0.0) -> bool:
+    """An estimate against another: the same model, verdict and budget, and
+    time and memory within ``rtol`` (0: equal)."""
+    if (got["model"], got["admitted"], got["hbm_budget"]) != \
+            (want["model"], want["admitted"], want["hbm_budget"]):
+        return False
+    return all(abs(got[k] - want[k]) <= rtol * abs(want[k]) for k in ("time_s", "memory_bytes"))
+
+
+def fleet_phase(torch, np, abacus, cold, seed_records, qwen_records, get_config, tprof,
+                counters):
+    """Phase 14: the serving fleet's loop around phase 12's service. ``abacus``
+    and ``cold`` are phase 12's predictor and cold estimates (in
+    ``service_queries`` order), ``seed_records`` the records it was fitted on,
+    ``qwen_records`` phase 10's truth at ``PROFILE_POINTS``. Builds a
+    ``ClusterFrontend`` over two in-process ``GatewayReplica``s and one
+    ``RemoteReplica`` spawned by ``spawn_replica``, all over phase 12's trace
+    store and one feedback store; answers phase 12's keys from the store
+    (each replica one query a tick, equal to phase 12's estimates; then one
+    burst through the frontend from several tenants) with no trace
+    fleet-wide; admits the qwen2-0.5b jobs on the card (``AdmissionController``
+    on one ``Machine`` of the card's memory) and runs them as phase 10 does,
+    each record equal to phase 10's but for time and memory; reports their
+    measured costs; refits and publishes generation 1 to every replica; asks
+    again; and answers one query from the H100 floor through a replica that
+    sheds everything."""
+    from repro_torch.core.predictor import DNNAbacus
+    from repro_torch.serve import (ClusterFrontend, GatewayReplica, SegmentFeedbackStore,
+                                   SegmentTraceStore)
+    from repro_torch.serve.prediction_service import trace_query
+    from repro_torch.serve.rpc import spawn_replica
+    print("== phase 14 (main path): the serving fleet around phase 12's service: stores, "
+          "gateway, admission, refit, cluster, RPC replica")
+    t_start = time.perf_counter()
+    traces, feedback = os.path.join(FLEET_DIR, "traces"), os.path.join(FLEET_DIR, "feedback")
+    predictor = os.path.join(FLEET_DIR, "predictor")
+    abacus.save(predictor)
+    replicas = [GatewayReplica(name, DNNAbacus.load(predictor), store=SegmentTraceStore(traces),
+                               feedback=SegmentFeedbackStore(os.path.join(feedback, "replicas")),
+                               tracer=trace_query)
+                for name in ("r0", "r1")]
+    # the child and the stubs' local handles open the stores by backend name
+    backend = os.environ.get("REPRO_STORE_BACKEND")
+    os.environ["REPRO_STORE_BACKEND"] = "segment"
+    t0 = time.perf_counter()
+    try:
+        remote = spawn_replica("r2", predictor, trace_root=traces,
+                               feedback_root=os.path.join(feedback, "replicas"),
+                               startup_timeout=FLEET_STARTUP_TIMEOUT)
+    finally:
+        if backend is None:
+            os.environ.pop("REPRO_STORE_BACKEND")
+        else:
+            os.environ["REPRO_STORE_BACKEND"] = backend
+    t_rpc = time.perf_counter() - t0
+    print(f"RPC replica r2 (pid {remote.proc.pid}) ready in {t_rpc:.2f} s")
+    fleet = ClusterFrontend(replicas=replicas + [remote], feedback_root=feedback,
+                            store_backend="segment")
+    fleet.start()
+    try:
+        fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_records,
+                   get_config, tprof, counters, t_start, t_rpc)
+    finally:
+        fleet.stop()
+        remote.shutdown()
+
+
+def fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_records, get_config,
+               tprof, counters, t_start, t_rpc):
+    """Phase 14 on a started fleet (``fleet_phase``)."""
+    from repro_torch.analysis.roofline import floor_estimate
+    from repro_torch.core.predictor import HBM_PER_DEVICE
+    from repro_torch.core.scheduler import Machine
+    from repro_torch.serve import AdmissionController, GatewayReplica, Query
+    queries = service_queries(get_config)
+    qwen_queries = queries[:len(PROFILE_POINTS)]
+    job_queries = [q for q in qwen_queries if q[1:] in FLEET_JOB_POINTS]
+    check(len(job_queries) == len(FLEET_JOB_POINTS), f"a job point is not in {PROFILE_POINTS}")
+
+    def traces_fleet_wide():
+        return sum(p["traces"] for p in fleet.server_info()["per_replica"].values())
+
+    # 1. every replica answers phase 12's keys from the store, one query a tick
+    t0 = time.perf_counter()
+    hit_times = {}
+    for replica in fleet.replicas:
+        got, hit_times[replica.name] = fleet_estimates(replica, queries)
+        for (cfg, b, s), est, want in zip(queries, got, cold):
+            check(same_estimate(est, want), f"{replica.name} {cfg.name} {(b, s)}: {est} differs "
+                                            f"from phase 12's {want}")
+            check(est["admitted"] == (est["memory_bytes"] <= HBM_PER_DEVICE),
+                  f"{replica.name} {cfg.name} {(b, s)}: admitted {est['admitted']}")
+        info = replica.server_info()
+        check(info["traces"] == 0 and info["store_hits"] == len(queries),
+              f"{replica.name} traced or missed the store: {info}")
+    # 2. one burst through the frontend, several tenants, several times each
+    burst = [(q, tenant) for _ in range(FLEET_REPEATS) for tenant in FLEET_TENANTS
+             for q in queries]
+    t_burst = time.perf_counter()
+    futs = [fleet.submit(cfg, b, s, tenant=tenant) for (cfg, b, s), tenant in burst]
+    answers = [f.result(600) for f in futs]
+    t_burst = time.perf_counter() - t_burst
+    for ((cfg, b, s), _), est in zip(burst, answers):
+        want = cold[queries.index((cfg, b, s))]
+        check(same_estimate(est, want, FLEET_BATCH_RTOL),
+              f"burst {cfg.name} {(b, s)}: {est} differs from phase 12's {want}")
+    check(traces_fleet_wide() == 0, f"the fleet traced: {fleet.server_info()['fleet']}")
+    proc = remote.process_info()
+    check(proc["cuda_initialized"] is False, f"the RPC replica initialised CUDA: {proc}")
+    check(not proc["modules"]["jax"] and not proc["modules"]["repro"],
+          f"the RPC replica imported JAX or the reference: {proc}")
+    t_hits = time.perf_counter() - t0
+    medians = ", ".join(f"{name} {np.median(t) * 1e3:.3f} ms (max {max(t) * 1e3:.3f})"
+                        for name, t in hit_times.items())
+    print(f"store hits: {len(fleet.replicas)} replicas x {len(queries)} keys, each answer equal "
+          f"to phase 12's, one query a tick, median {medians}; burst of {len(burst)} queries "
+          f"from {len(FLEET_TENANTS)} tenants in {t_burst * 1e3:.1f} ms; 0 traces fleet-wide; "
+          f"RPC child {proc}")
+
+    # 3. admit the qwen2-0.5b jobs on one card
+    total = torch.cuda.get_device_properties(0).total_memory
+    ctl = AdmissionController(fleet, [Machine("h100", hbm_bytes=total)])
+    verdicts = ctl.admit([Query(cfg, b, s, tenant=FLEET_TENANTS[i % len(FLEET_TENANTS)])
+                          for i, (cfg, b, s) in enumerate(job_queries)])
+    print(json.dumps({"admission": [v.as_dict() for v in verdicts],
+                      "cluster": ctl.cluster_state()}))
+    admitted = [(v, q) for v, q in zip(verdicts, job_queries) if v.admitted]
+    check(bool(admitted), "no qwen2-0.5b job was admitted")
+
+    # 4. run the admitted jobs on the card, as phase 10 does
+    t0 = time.perf_counter()
+    measured = {}
+    for v, (cfg, b, s) in admitted:
+        rec, _ = profile_record(torch, tprof, dataclasses.replace(cfg, dtype="bfloat16"), b, s,
+                                counters)
+        truth = qwen_records[PROFILE_POINTS.index((b, s))]
+        blank = dict(time_s=0.0, mem_bytes=0.0)
+        check(dataclasses.replace(rec, **blank) == dataclasses.replace(truth, **blank),
+              f"job {v.job_id}: its record differs from phase 10's but for time and memory")
+        check(impl_switches() == (None, None, None),
+              f"the impl switches are {impl_switches()} after job {v.job_id}'s trace")
+        measured[(b, s)] = (rec.time_s, rec.mem_bytes)
+    t_jobs = time.perf_counter() - t0
+
+    # 5. report, refit on phase 12's records and the feedback, publish
+    for v, (cfg, b, s) in admitted:
+        out = ctl.report_completion(v.job_id, time_s=measured[(b, s)][0],
+                                    mem_bytes=measured[(b, s)][1])
+        check(out["observed"], f"job {v.job_id}'s completion was not observed: {out}")
+    check(ctl.cluster_state()["resident_jobs"] == 0, "a job's reservation was not released")
+    refitter = fleet.make_refitter(seed_records=seed_records, min_observations=1)
+    t0 = time.perf_counter()
+    gen = refitter.refit_now(force=True)
+    check(gen is not None and gen.number == 1 and gen.n_feedback == len(admitted),
+          f"refit gave {gen and gen.summary()}")
+    t_refit = refitter.last_refit_s
+    # each replica adopts at its next tick boundary
+    deadline = time.monotonic() + 60.0
+    while True:
+        gens = {r.name: r.service.generation for r in fleet.replicas}
+        if set(gens.values()) == {1} or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    t_publish = time.perf_counter() - t0 - t_refit
+    check(set(gens.values()) == {1}, f"generation 1 not adopted everywhere: {gens}")
+
+    # 6. ask again: generation 1 everywhere, the same answer from every replica
+    again = {r.name: fleet_estimates(r, qwen_queries)[0] for r in fleet.replicas}
+    for i, (cfg, b, s) in enumerate(qwen_queries):
+        ests = [again[name][i] for name in sorted(again)]
+        check(all(e["generation"] == 1 for e in ests), f"{cfg.name} {(b, s)}: {ests}")
+        check(all(same_estimate(e, ests[0]) for e in ests),
+              f"{cfg.name} {(b, s)}: replicas disagree: {ests}")
+    errors = {}
+    for i, (cfg, b, s) in enumerate(qwen_queries):
+        if (b, s) not in measured:
+            continue
+        t_true, m_true = measured[(b, s)]
+        g0, g1 = cold[i], again["r0"][i]
+        errors[f"{b}x{s}"] = {
+            "measured_time_s": t_true, "measured_mem_bytes": m_true,
+            "gen0_time_rel_err": abs(g0["time_s"] - t_true) / t_true,
+            "gen0_mem_rel_err": abs(g0["memory_bytes"] - m_true) / m_true,
+            "gen1_time_rel_err": abs(g1["time_s"] - t_true) / t_true,
+            "gen1_mem_rel_err": abs(g1["memory_bytes"] - m_true) / m_true}
+    stats = fleet.stats()
+    print(json.dumps({"refit": {"generation": gen.summary(), "errors": errors,
+                                "calibration": stats["calibration"]}}))
+
+    # 7. the shed path: a replica that sheds everything answers from the H100 floor
+    shed = GatewayReplica("shed", abacus, shed_watermark=0).start()
+    try:
+        cfg, b, s = qwen_queries[-1]
+        est = shed.submit(cfg, b, s).result(60)
+    finally:
+        shed.stop()
+    floor = floor_estimate(cfg, b, s)
+    check({k: est[k] for k in floor} == floor and est["degraded"] is True
+          and est["admitted"] == (est["memory_bytes"] <= HBM_PER_DEVICE)
+          and shed.service.stats.traces == 0, f"shed answer {est}, floor {floor}")
+    print(f"shed query {cfg.name} {(b, s)} answered from the H100 floor: {json.dumps(est)}")
+
+    # 8. the rest
+    info = fleet.server_info()
+    print(json.dumps({"fleet_stats": {k: stats[k] for k in ("replicas", "fleet", "generations",
+                                                              "overload", "refit", "publisher",
+                                                              "feedback")},
+                      "fleet_server_info": info["fleet"]}))
+    lines = fleet.metrics_text().splitlines()
+    print(f"merged metrics_text: {len(lines)} lines")
+    print(f"phase 14 wall time {time.perf_counter() - t_start:.1f} s: store-hit queries "
+          f"{t_hits:.2f} s, jobs {t_jobs:.1f} s, refit {t_refit:.2f} s, publish "
+          f"{t_publish:.3f} s, RPC start-up {t_rpc:.2f} s")
 
 
 def new_archs_phase(torch, F, kops, attention_ref, get_config, build_model, all_plain,
@@ -1498,13 +1787,14 @@ def main() -> int:
         new_archs["launches"], new_archs["flash"] = new_archs_phase(
             torch, F, kops, attention_ref, get_config, build_model, all_plain, DecodeEngine,
             counters)
-    service_abacus = experiment_phase(np, records, tzoo, on_the_card)
+    service_abacus, service_records = experiment_phase(np, records, tzoo, on_the_card)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
           f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits with phase 13 "
           f"beside them {t_end - t_fit:.1f} s")
 
-    service_phase(torch, np, service_abacus, lm_records[:len(PROFILE_POINTS)], get_config)
+    cold = service_phase(torch, np, service_abacus, lm_records[:len(PROFILE_POINTS)],
+                         get_config)
     t_queries = time.perf_counter()
     chatglm = get_config("chatglm3-6b")
     model_check_phase(torch, "phase 12", chatglm, build_model, all_plain, steps=1)
@@ -1514,6 +1804,9 @@ def main() -> int:
                       chatglm.num_kv_heads)
     print(f"phase 12 wall time {time.perf_counter() - t_end:.1f} s: queries "
           f"{t_queries - t_end:.1f} s, chatglm3-6b {time.perf_counter() - t_queries:.1f} s")
+
+    fleet_phase(torch, np, service_abacus, cold, service_records, lm_records[:len(PROFILE_POINTS)],
+                get_config, tprof, counters)
 
     # each kernel at its main shape, and flash and the SSD scan also at
     # phase 13's: launches are those of the main path's call at that shape

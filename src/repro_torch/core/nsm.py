@@ -23,6 +23,7 @@ card.
 from __future__ import annotations
 
 import operator
+import threading
 from collections import defaultdict
 from typing import Callable, Dict, Optional, Tuple
 
@@ -333,11 +334,17 @@ class NSMFeaturizer:
         return v * v + 2 * v
 
 
+# ``make_fx`` keeps module-level state (``torch.fx``'s patcher), so two
+# traces that overlap in threads fail; they take turns on this lock.
+TRACE_LOCK = threading.RLock()
+
+
 def trace(fn: Callable, *example_args) -> torch.fx.GraphModule:
     """The aten graph of ``fn`` traced on fake tensors made from the example
     arguments (real, ``meta`` or fake tensors, in any pytree), with every
-    kernel pinned to its plain version."""
-    with use_impls(attention="plain", ssd="plain", norm="plain"):
+    kernel pinned to its plain version in the calling thread. Traces in
+    several threads run one at a time (``TRACE_LOCK``)."""
+    with TRACE_LOCK, use_impls(attention="plain", ssd="plain", norm="plain"):
         return make_fx(fn, decomposition_table=_DECOMPOSE,
                        tracing_mode="fake")(*example_args)
 

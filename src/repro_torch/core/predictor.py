@@ -123,11 +123,10 @@ class DNNAbacus:
 
         All online queries go through it: repeated (config, batch, seq)
         questions hit its trace cache instead of re-building the model.
-        ``store`` is the reference's cross-process ``TraceStore`` seam; the
-        port's service takes none until its own store exists (ROADMAP Queue
-        A item 18) and raises on one. It only takes effect when the service
-        is first created (or has no store yet): an already attached store is
-        never silently swapped out. For other custom options (budget, cache
+        ``store`` (a ``repro_torch.serve.trace_store.TraceStore``) backs the
+        cache with cross-process persistence; it only takes effect when the
+        service is first created (or has no store yet): an already attached
+        store is never silently swapped out. For other custom options (budget, cache
         size, tracer) construct a ``PredictionService`` directly —
         recreating it here would throw away the warm trace cache.
         """

@@ -123,10 +123,11 @@ def trace_step(step_fn, args, device="cpu") -> Dict:
     fake_mode = FakeTensorMode()
     with fake_mode:
         fake = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device=device), args)
-    gm = nsm_lib.trace(step_fn, *fake)
     mapping = {torch.ops.aten.convolution_backward: _conv_backward_flop}
-    with fake_mode, FlopCounterMode(display=False, custom_mapping=mapping) as counter:
-        gm(*fake)
+    with nsm_lib.TRACE_LOCK:  # one trace at a time, the FLOP count with it
+        gm = nsm_lib.trace(step_fn, *fake)
+        with fake_mode, FlopCounterMode(display=False, custom_mapping=mapping) as counter:
+            gm(*fake)
     return {"flops": float(counter.get_total_flops()), "nsm_edges": nsm_lib.nsm_edges(gm)}
 
 

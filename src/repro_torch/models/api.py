@@ -8,18 +8,11 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention as attn
-from repro_torch.models import layers as L
-from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import attention, layers, ssm  # noqa: F401 (each makes its switch)
 from repro_torch.models.stack import StackModel
+from repro_torch.models.switch import SWITCHES
 
 _UNSET = "unset"
-# name -> (getter, setter) of each kernel's impl switch
-_SWITCHES = {
-    "attention": (attn.get_attention_impl, attn.set_attention_impl),
-    "ssd": (ssm_lib.get_ssd_impl, ssm_lib.set_ssd_impl),
-    "norm": (L.get_norm_impl, L.set_norm_impl),
-}
 
 
 def build_model(cfg: ModelConfig, device=None) -> StackModel:
@@ -41,15 +34,13 @@ def build_model(cfg: ModelConfig, device=None) -> StackModel:
 def use_impls(attention: Optional[str] = _UNSET, ssd: Optional[str] = _UNSET,
               norm: Optional[str] = _UNSET) -> Iterator[None]:
     """Pin the impls of the named kernels (``"plain"``, ``"cuda"`` or None,
-    as their ``set_*_impl``) inside the scope and restore them after it; an
-    impl not named is left as it is."""
+    as their ``set_*_impl``) inside the scope, for the calling thread only;
+    an impl not named is left as it is. Other threads keep their own impls,
+    and overlapping scopes in several threads cannot undo one another
+    (``repro_torch.models.switch``)."""
     asked = {"attention": attention, "ssd": ssd, "norm": norm}
-    saved = {name: get() for name, (get, _) in _SWITCHES.items()}
-    try:
+    with contextlib.ExitStack() as pins:
         for name, impl in asked.items():
             if impl != _UNSET:
-                _SWITCHES[name][1](impl)
+                pins.enter_context(SWITCHES[name].pinned(impl))
         yield
-    finally:
-        for name, impl in saved.items():
-            _SWITCHES[name][1](impl)

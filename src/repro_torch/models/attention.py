@@ -24,22 +24,21 @@ from typing import Optional
 import torch
 
 from repro_torch.models.module import spec
+from repro_torch.models.switch import ImplSwitch
 
-IMPLS = ("plain", "cuda")
-_IMPL: Optional[str] = None  # None: the kernel on the card, plain on the CPU
+_SWITCH = ImplSwitch("attention")  # None: the kernel on the card, plain on the CPU
 
 
 def set_attention_impl(impl: Optional[str]) -> None:
     """Pin the causal path to ``"plain"`` or ``"cuda"``; ``None`` restores the
     default choice by device."""
-    global _IMPL
-    if impl is not None and impl not in IMPLS:
-        raise ValueError(f"attention impl {impl!r} not in {IMPLS} or None")
-    _IMPL = impl
+    _SWITCH.set(impl)
 
 
 def get_attention_impl() -> Optional[str]:
-    return _IMPL
+    """The impl in force in the calling thread (``models.api.use_impls`` pins
+    it there alone)."""
+    return _SWITCH.get()
 
 
 # ---------------------------------------------------------------------------
@@ -142,12 +141,7 @@ CHUNK_Q = 512
 
 
 def _use_kernel(q) -> bool:
-    if _IMPL == "cuda":
-        if not q.is_cuda:
-            raise ValueError("attention impl 'cuda' asked for with tensors on "
-                             f"{q.device}; the kernel runs on the card only")
-        return True
-    return _IMPL is None and q.is_cuda
+    return _SWITCH.use_kernel(q)
 
 
 def causal_attention(q, k, v):

@@ -22,31 +22,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import spec
+from repro_torch.models.switch import ImplSwitch
 
-IMPLS = ("plain", "cuda")
-_IMPL: Optional[str] = None  # None: the kernels on the card, plain on the CPU
+_SWITCH = ImplSwitch("norm")  # None: the kernel on the card, plain on the CPU
 
 
 def set_norm_impl(impl: Optional[str]) -> None:
     """Pin RMSNorm to ``"plain"`` or ``"cuda"``; ``None`` restores the default
     choice by device."""
-    global _IMPL
-    if impl is not None and impl not in IMPLS:
-        raise ValueError(f"norm impl {impl!r} not in {IMPLS} or None")
-    _IMPL = impl
+    _SWITCH.set(impl)
 
 
 def get_norm_impl() -> Optional[str]:
-    return _IMPL
+    """The impl in force in the calling thread (``models.api.use_impls`` pins
+    it there alone)."""
+    return _SWITCH.get()
 
 
 def _use_kernel(x) -> bool:
-    if _IMPL == "cuda":
-        if not x.is_cuda:
-            raise ValueError("norm impl 'cuda' asked for with tensors on "
-                             f"{x.device}; the kernels run on the card only")
-        return True
-    return _IMPL is None and x.is_cuda
+    return _SWITCH.use_kernel(x)
 
 
 # ---------------------------------------------------------------------------

@@ -21,22 +21,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import spec
+from repro_torch.models.switch import ImplSwitch
 
-IMPLS = ("plain", "cuda")
-_IMPL: Optional[str] = None  # None: the kernel on the card, plain on the CPU
+_SWITCH = ImplSwitch("ssd")  # None: the kernel on the card, plain on the CPU
 
 
 def set_ssd_impl(impl: Optional[str]) -> None:
     """Pin the scan to ``"plain"`` or ``"cuda"``; ``None`` restores the
     default choice by device."""
-    global _IMPL
-    if impl is not None and impl not in IMPLS:
-        raise ValueError(f"ssd impl {impl!r} not in {IMPLS} or None")
-    _IMPL = impl
+    _SWITCH.set(impl)
 
 
 def get_ssd_impl() -> Optional[str]:
-    return _IMPL
+    """The impl in force in the calling thread (``models.api.use_impls`` pins
+    it there alone)."""
+    return _SWITCH.get()
 
 
 def ssm_spec(cfg):
@@ -80,12 +79,7 @@ def _conv_step(buf, x_t, w, b):
 
 
 def _use_kernel(x) -> bool:
-    if _IMPL == "cuda":
-        if not x.is_cuda:
-            raise ValueError("ssd impl 'cuda' asked for with tensors on "
-                             f"{x.device}; the kernel runs on the card only")
-        return True
-    return _IMPL is None and x.is_cuda
+    return _SWITCH.use_kernel(x)
 
 
 def ssd_chunked(xb, dt, a_neg, bmat, cmat, chunk: int):

@@ -53,6 +53,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.module import (ParamSpec, Tree, count_params, fill_leaf, flatten,
                                        port_names, spec, stack_specs)
+from repro_torch.models.switch import with_the_impls_in_force
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -347,7 +348,8 @@ class StackModel(nn.Module):
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _dots_policy)
         # the model draws no random numbers
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+        return checkpoint(with_the_impls_in_force(fn), *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     def _encode(self, frames):
         """Whisper-style encoder over stub frame embeddings (B,M,D)."""

@@ -25,12 +25,12 @@ edges, featurization happens at predict time).
 A copy of ``repro.serve.prediction_service`` (the port imports nothing of
 the reference): the cache keys, ``stats.as_dict()`` and ``cache_info()``
 are the reference's, key for key. ``trace_query`` is the port's tracer: the
-train step's aten graph traced by ``make_fx`` on fake tensors. The
-persistent ``TraceStore`` arrives with the serving fleet (ROADMAP Queue A
-item 18): ``config_fingerprint`` hashes field values only, so equal configs
-of the two packages share a key, and a store shared with the reference
-would hand one package's NSM to the other's predictor. Until then the
-service takes no ``store``.
+train step's aten graph traced by ``make_fx`` on fake tensors. ``store`` is
+the port's ``TraceStore`` (``repro_torch.serve.trace_store``).
+``config_fingerprint`` hashes field values only, so equal configs of the
+two packages share a key; the port's store serves a record the reference
+traced as a miss, so a directory both packages write to never hands the
+reference's NSM to the port's predictor.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class Query:
     (the fingerprint is the hot path's dominant per-query cost).
 
     ``tc`` optionally carries a trace context
-    (``{"trace": id, "span": root}``, the reference's ``repro.obs.tracing``);
+    (``{"trace": id, "span": root}``, see :mod:`repro_torch.obs.tracing`);
     it rides the query across process boundaries so every stage stamps
     spans into one coherent per-query trace.
 
@@ -75,7 +75,7 @@ class Query:
     batch: int
     seq: int
     fp: Optional[str] = None  # precomputed config fingerprint
-    tc: Optional[Dict] = None  # trace context (the reference's repro.obs.tracing)
+    tc: Optional[Dict] = None  # trace context (repro_torch.obs.tracing)
     tenant: str = ""  # job owner for quotas + calibration ("" = shared)
     deadline: Optional[float] = None  # absolute time.monotonic() deadline
 
@@ -257,7 +257,7 @@ class PredictionService:
         self.max_cache_entries = max_cache_entries
         self.cache_predictions = bool(cache_predictions)
         self._tracer = tracer  # injectable: tests count trace calls
-        self.store = store  # None until the port's TraceStore (see ``store``)
+        self.store = store  # optional TraceStore: cross-process persistence
         self._cache: "OrderedDict[CacheKey, ProfileRecord]" = OrderedDict()
         self._inflight: Dict[CacheKey, threading.Event] = {}
         self._lock = threading.Lock()
@@ -276,21 +276,6 @@ class PredictionService:
         self.generation = 0
         self._est_cache: "OrderedDict[CacheKey, Tuple[float, float]]" = \
             OrderedDict()
-
-    @property
-    def store(self):
-        """The persistent ``TraceStore`` behind the cache: always None in
-        the port until its own store exists (ROADMAP Queue A item 18)."""
-        return self._store
-
-    @store.setter
-    def store(self, store) -> None:
-        if store is not None:
-            raise NotImplementedError(
-                "the port's PredictionService takes no store until the port's TraceStore "
-                "(ROADMAP Queue A item 18): a store shared with the reference package "
-                "would hand one package's records to the other's predictor")
-        self._store = store
 
     # -- trace cache --------------------------------------------------------
     def cache_key(self, cfg, batch: int, seq: int) -> CacheKey:

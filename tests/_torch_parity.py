@@ -4,11 +4,17 @@ Inputs are made with numpy from a seed and handed to both packages; JAX
 stays on the CPU and data crosses as numpy arrays.
 """
 
+import os
+import re
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _pytest.fixtures import FixtureFunctionDefinition
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -160,3 +166,62 @@ def zoo_parity(name, batch=4, image=32, grad_dtype="float64", fwd_dtype="float32
         want = jg[path].transpose(3, 2, 0, 1) if jg[path].ndim == 4 else jg[path]
         err = np.abs(grads[name_].double().numpy() - want).max() / scale
         assert err <= ZOO_GRAD_TOL[grad_dtype], (name, path, err)
+
+
+# -- the reference's suites, bound to the port ---------------------------------
+
+SUITES = os.path.dirname(os.path.abspath(__file__))
+
+
+def port_suite(name: str) -> types.ModuleType:
+    """The reference suite ``tests/<name>.py``, bound to the port.
+
+    The suite's source runs as module ``_port_<name>`` with every ``repro.``
+    module path read as ``repro_torch.`` (its imports, and the ``module:attr``
+    specs it hands to spawned replicas) and every import of another suite
+    read as that suite's port binding, so its tests and helpers find the
+    port's classes where they find the reference's. Line numbers are the
+    source's. ``ProfileRecord`` is rebound to stamp ``PLATFORM_TORCH_CUDA``
+    unless a platform is given: the suites' records stand for the port's
+    traces, and the port's trace store serves no other platform. The
+    reference's files are read, never changed.
+    """
+    modname = f"_port_{name}"
+    if modname in sys.modules:
+        return sys.modules[modname]
+    path = os.path.join(SUITES, f"{name}.py")
+    with open(path) as f:
+        src = f.read()
+    for dep in sorted(set(re.findall(r"^\s*(?:from|import) (test_\w+)", src, re.M))):
+        port_suite(dep)
+    src = re.sub(r"\brepro\.(?=[a-z_])", "repro_torch.", src)
+    src = re.sub(r"^(\s*)from (test_\w+) import", r"\1from _port_\2 import", src, flags=re.M)
+    src = re.sub(r"^(\s*)import (test_\w+)[ \t]*$", r"\1import _port_\2 as \2", src, flags=re.M)
+    mod = types.ModuleType(modname)
+    mod.__file__ = path
+    sys.modules[modname] = mod
+    exec(compile(src, path, "exec"), mod.__dict__)
+    if "ProfileRecord" in vars(mod):
+        mod.ProfileRecord = _stamped(mod.ProfileRecord)
+    return mod
+
+
+def _stamped(record_cls):
+    from repro_torch.core.features import PLATFORM_TORCH_CUDA
+
+    def make(*args, **kwargs):
+        kwargs.setdefault("platform", PLATFORM_TORCH_CUDA)
+        return record_cls(*args, **kwargs)
+    return make
+
+
+def suite_tests(*mods: types.ModuleType) -> dict:
+    """The tests and fixtures of the bound suites, to be collected where
+    they are bound (``globals().update(suite_tests(...))``)."""
+    out = {}
+    for mod in mods:
+        for name, obj in vars(mod).items():
+            if (name.startswith("test_") and callable(obj)) or isinstance(
+                    obj, FixtureFunctionDefinition):
+                out[name] = obj
+    return out

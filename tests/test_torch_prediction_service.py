@@ -9,7 +9,8 @@ reference's in every field but the NSM (whose names lie within the
 reference's), the platform tag and the traced FLOPs it keeps in ``extra``;
 a predictor fitted in the reference and carried across by
 ``to_dict``/``from_dict`` gives the same estimates through both services;
-and the port's service refuses a ``store``.
+and the port's service takes the port's ``TraceStore`` but refuses the
+records the reference traced into it.
 """
 
 import dataclasses
@@ -450,17 +451,40 @@ def test_carried_predictor_gives_the_same_estimates_through_both_services():
     assert ests[REF] == ests[PORT]
 
 
-def test_port_service_refuses_a_store():
-    port = _bind(PORT)
+def test_port_service_refuses_a_store(tmp_path):
+    """The port's service takes the port's ``TraceStore`` (``service(store=)``
+    attaches one once and never swaps an attached one) and refuses what the
+    store holds from the reference: a record the reference traced under the
+    same key is a miss, traced again by the port and written over it."""
+    from repro.serve.trace_store import TraceStore as RefStore
+    from repro_torch.core.features import PLATFORM_TORCH_CUDA
+    from repro_torch.serve.trace_store import TraceStore as PortStore
+    ref, port = _bind(REF), _bind(PORT)
+    cfg = _fake_cfg("a")
+    ref_calls, port_calls = [], []
+    ref_svc = ref.PredictionService(_abacus(ref), tracer=_counting_tracer(ref, ref_calls),
+                                    store=RefStore(str(tmp_path)))
+    ref_svc.predict_one(cfg, 2, 32)
+    assert ref_calls == [("a", 2, 32)] and len(ref_svc.store) == 1
+
     ab = _abacus(port)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        port.PredictionService(ab, store=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ab.service(store=object())
-    svc = ab.service()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ab.service(store=object())
-    assert ab.service() is svc and svc.store is None
+    store = PortStore(str(tmp_path))
+    svc = ab.service(store=store)
+    assert svc.store is store and ab.service(store=PortStore(str(tmp_path))) is svc
+    assert svc.store is store
+
+    counting = _counting_tracer(port, port_calls)
+
+    def tracer(*args):
+        return dataclasses.replace(counting(*args), platform=PLATFORM_TORCH_CUDA)
+    port_svc = port.PredictionService(ab, tracer=tracer, store=store)
+    est = port_svc.predict_one(cfg, 2, 32)
+    assert port_calls == [("a", 2, 32)] and np.isfinite(est["time_s"])
+    assert port_svc.stats.store_hits == 0 and store.stats.misses == 1
+    assert store.stats.corrupt == 0
+    again = port.PredictionService(ab, tracer=tracer, store=PortStore(str(tmp_path)))
+    assert again.predict_one(cfg, 2, 32) == est and again.stats.store_hits == 1
+    assert port_calls == [("a", 2, 32)]
 
 
 def test_service_is_made_once_and_not_carried():

@@ -94,15 +94,18 @@ def test_abacus_refit_bit_identical():
     assert json.dumps(new_port.to_dict()) == json.dumps(new_ref.to_dict())
 
 
-def test_hbm_budget_and_unported_service():
-    """The service fronts the predictor at the card's budget; what stays
-    unported is its persistent store (ROADMAP Queue A item 18)."""
+def test_hbm_budget_and_unported_service(tmp_path):
+    """The service fronts the predictor at the card's budget, and takes the
+    port's persistent trace store (unported until the serving fleet) once:
+    an attached store is never swapped out."""
+    from repro_torch.serve.trace_store import SegmentTraceStore
     assert tp.HBM_PER_DEVICE == 85_017_493_504  # one H100 80GB HBM3's total memory
     ab = tp.DNNAbacus()
     svc = ab.service()
-    assert svc.hbm_budget == tp.HBM_PER_DEVICE and ab.service() is svc
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ab.service(store=object())
+    assert svc.hbm_budget == tp.HBM_PER_DEVICE and ab.service() is svc and svc.store is None
+    store = SegmentTraceStore(str(tmp_path / "a"))
+    assert ab.service(store=store) is svc and svc.store is store
+    assert ab.service(store=SegmentTraceStore(str(tmp_path / "b"))).store is store
 
 
 def test_shape_inference_memory_equal():
