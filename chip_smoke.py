@@ -52,9 +52,10 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
 10. the third main path: ``profile_lm`` of qwen2-0.5b in bf16 at full width
    at (batch, seq) = (1, 512), (4, 1024), (8, 2048), each record printed as
    a JSON line with the kernels' launches counted around that call (a
-   warm-up and the timed steps); the NSM traced on card tensors against
-   the CPU trace; the step's time on seeded random state against zeros; a
-   device profile of one step; and one mamba2-370m record;
+   warm-up and the timed steps); the step's time on seeded random state
+   against zeros; a device profile of one step; and one mamba2-370m record,
+   full width at ``MAMBA_DEPTH`` layers (the first record's NSM, traced on
+   card tensors, is held against a CPU trace beside phase 11's fits);
 11. the fourth main path, the paper's experiment: every one of the 29 zoo
    CNNs' forward, loss and gradients at batch 8 on the card (TF32 off), in
    float64 and in fp32, against the CPU's float64 step (float64 within
@@ -73,22 +74,23 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    MLP baselines) and ``bench_unseen.py`` (zero-shot on the five unseen
    nets, NSM and graph embedding) do, its MREs printed as one JSON line,
    and the phase's wall time. The fits, phase 12's among them, run side by
-   side in spawned worker processes, and phase 13 runs on the card
-   meanwhile;
+   side in spawned worker processes, and phase 13, phase 12's chatglm3-6b,
+   phase 10's NSM check and phase 15's in-process half run meanwhile;
 12. the fifth main path, the online query: ``DNNAbacus.service()`` over a
    predictor fitted on every record but qwen2-0.5b's, with a fresh
    segment-log ``TraceStore`` under ``build/fleet`` that its cold queries
    write through to (one record a key), asked cold and warm
    about qwen2-0.5b at phase 10's points and chatglm3-6b, phi4-mini-3.8b,
-   qwen2.5-32b and the MoE moonshot-v1-16b-a3b at (8, 2048) (one trace a
-   key, identical warm answers at least 10x faster, each qwen2-0.5b record
+   qwen2.5-32b and the MoE moonshot-v1-16b-a3b at (8, 2048), all four at
+   full width cut to ``SERVICE_DEPTH`` layers for the script's time (one
+   trace a key, identical warm answers at least 10x faster, each qwen2-0.5b record
    equal to phase 10's but for FLOPs, time and memory, every online FLOPs
    count 6 x active parameters x batch x seq), one JSON line a query with
-   both FLOPs counts and, for qwen2-0.5b, the measured time and memory; then
-   chatglm3-6b at full width, fp32 checks as phase 3 and bf16 served as
-   phase 4 through the flash-attention (head_dim 128, 16:1 grouped KV) and
-   RMSNorm kernels, and its prefill's flash call timed beside SDPA and the
-   bound;
+   both FLOPs counts and, for qwen2-0.5b, the measured time and memory; and,
+   run beside phase 11's fits, chatglm3-6b at full width, fp32 checks as
+   phase 3 and bf16 served as phase 4 through the flash-attention (head_dim
+   128, 16:1 grouped KV) and RMSNorm kernels, and its prefill's flash call
+   timed beside SDPA and the bound;
 13. the sixth main path, the MoE, hybrid, VLM and audio archs at full
    width (``PHASE13``), each with fp32 checks as phase 3 (cross-attention
    gates set to ``GATE``, stub patches or frames drawn on the card; MoE
@@ -117,18 +119,43 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    (``{"refit": ...}``: generation 0's and 1's errors against the measured
    costs, and the calibration window), and a replica that sheds
    everything answers from the H100 floor; then the fleet's stats and the
-   phase's wall time split.
+   phase's wall time split;
+15. the eighth main path, the training launcher: qwen2-0.5b in bf16 at
+   full width and depth (24 layers, remat "full") at phase 10's (4, 1024).
+   Its in-process half (``train_run``) runs beside phase 11's fits, where
+   the card is free: a ``Trainer`` for ``TRAIN_STEPS`` steps with a
+   checkpoint every ``TRAIN_CKPT_EVERY`` under ``build/train`` and one step
+   call failing once (``FailureInjector``): exactly the injected retries,
+   each step's batch equal to ``batch_at(step)`` and its kernel launches
+   those of one train step (``step_launches``: the RMSNorm kernels on every
+   norm); the last checkpoint restored bit for bit, bf16 leaves included,
+   then deleted. After phase 14 (``train_phase``), with only the first
+   checkpoint left, ``python -m repro_torch.launch.train --full-size
+   --predict`` with phase 14's generation-1 predictor in a child process:
+   the same estimate as the trace store gives, resumed at that checkpoint,
+   its logged losses equal to the in-process run's bit for bit and its
+   final checkpoint the in-process one's (each array's CRC-32 and size).
+   Printed: each save's and restore's seconds and GB/s, the step times
+   beside phase 10's, the estimate against the measured step and peak,
+   stragglers, retries and the free disk (the phase needs
+   ``TRAIN_DISK_CKPTS`` checkpoints of 6.9 GB);
+16. the drift-scenario replay (``scenario_phase``), while phase 15's child
+   trains: the composed scenario of ``benchmarks/bench_scenarios.py`` at its
+   smoke size over the port's fleet of four in-process replicas (a kill, a
+   resize to six, two publishes), every oracle of ``check_all`` holding
+   and the schedule's digest equal in two children under other
+   ``PYTHONHASHSEED``s.
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
 and must be 0); its LM records' steps run the RMSNorm kernels, counted
-around each ``profile_lm`` call. Nothing in phases 11, 12 and 14 is caught: a
-record, a query or a kernel that fails fails the run.
+around each ``profile_lm`` call. Nothing in phases 11, 12 and 14-16 is caught: a
+record, a query, a step or a kernel that fails fails the run.
 Phases 3, 6, 12 and 13 run their plain side with every kernel pinned plain;
 phases 4, 7, 12, 13 and 14 count the RMSNorm kernel too (one launch a norm,
-each prefill and each decode step). Any failed check raises, so the script exits
-nonzero without the final line; so it does without a card, or away from the
-repository's sources.
+each prefill and each decode step), and phase 15 each train step's. Any
+failed check raises, so the script exits nonzero without the final line; so
+it does without a card, or away from the repository's sources.
 The last lines are a JSON object of kernel results, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -138,12 +165,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
+import zipfile
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
@@ -192,6 +222,10 @@ PROFILE_POINTS = [(1, 512), (4, 1024), (8, 2048)]
 PROFILE_STEPS = 3
 QWEN_PARAMS = 494_147_456  # the reference's count for qwen2-0.5b
 MAMBA_POINT = (2, 512)
+# phase 10's mamba2-370m record at full width, cut to MAMBA_DEPTH of its 48
+# layers for the script's time: the fake-tensor trace of the 48 took most of
+# the record's 72.1 s (run C, PR 19; NVIDIA H100 80GB HBM3, 700 W)
+MAMBA_DEPTH = 8
 
 # phase 11: the reference's default profiling grid (benchmarks/collect.py's
 # zoo_grid without BENCH_FULL, copied: the port imports nothing of benchmarks/)
@@ -265,6 +299,13 @@ IN_SAMPLE_MRE_MAX = 1.0  # the reference's tests/test_system.py bound
 SERVICE_UNSEEN = "qwen2-0.5b"
 SERVICE_ARCHS = ["chatglm3-6b", "phi4-mini-3.8b", "qwen2.5-32b", "moonshot-v1-16b-a3b"]
 SERVICE_POINT = (8, 2048)
+# depths of the asked-about configs cut for the script's time (full width,
+# fewer layers): a cold query is a fake-tensor trace whose time grows with the
+# layers (moonshot-v1-16b-a3b's 48 took 51.1 s, qwen2.5-32b's 64 46.9 s in run
+# B, PR 18; the five keys of chatglm3-6b, phi4-mini-3.8b and qwen2-0.5b
+# together 98.3 s); phase 14 answers whatever keys phase 12 stored
+SERVICE_DEPTH = {"chatglm3-6b": 4, "phi4-mini-3.8b": 4, "qwen2.5-32b": 4,
+                 "moonshot-v1-16b-a3b": 4}
 WARM_SPEEDUP_MIN = 10.0
 CHATGLM_ATTN_SHAPE = (8, 2081, 32, 128)  # chatglm3-6b's serving prefill: 32 heads of 128
 # phase 13: the MoE, hybrid, VLM and audio archs at full width, each
@@ -298,6 +339,31 @@ FLEET_REPEATS = 2
 FLEET_JOB_POINTS = [(8, 2048)]
 FLEET_BATCH_RTOL = 1e-12
 FLEET_STARTUP_TIMEOUT = 120.0  # seconds for the RPC child to import torch and listen
+# phase 15: the training launcher on qwen2-0.5b (bf16, 24 layers, remat
+# "full") at phase 10's (4, 1024), where its step took 0.3548 s (run B, PR
+# 18; NVIDIA H100 80GB HBM3, 700 W). TRAIN_STEPS steps in process, a
+# checkpoint every TRAIN_CKPT_EVERY (under TRAIN_DIR, removed at the end),
+# the step calls of TRAIN_FAIL_CALLS failing once each; then the launcher
+# resumed from the first checkpoint in a child process. A checkpoint of the
+# state is 14 bytes a parameter (bf16 params, fp32 master, m and v): the
+# phase needs the free disk of TRAIN_DISK_CKPTS of them.
+TRAIN_POINT = (4, 1024)
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAIL_CALLS = (2,)
+TRAIN_DISK_CKPTS = 3
+PHASE10_STEP_S = 0.3548
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train")
+TRAIN_CKPT_DIR = os.path.join(TRAIN_DIR, "ckpt")
+TRAIN_CHILD_TIMEOUT = 600.0
+# phase 16: benchmarks/bench_scenarios.py's composed scenario at its smoke
+# size (composed_spec(smoke=True), copied: the port imports nothing of
+# benchmarks/), on its fleet of four in-process replicas, replayed as fast as
+# possible; the schedule's digest also from children under these
+# PYTHONHASHSEEDs (its HASH_SEEDS)
+SCENARIO_HASH_SEEDS = (0, 4242)
+SCENARIO_REPLICAS = 4
+SCENARIO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "scenario")
 
 DEVICE = "cuda"
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
@@ -886,10 +952,11 @@ def profile_record(torch, tprof, cfg, b: int, s: int, counters, steps: int = PRO
 
 def profile_phase(torch, cfg_full, mamba_full, build_model, tprof, tstep, topt, counters):
     """The profiled train step at full width: the records with the kernels'
-    launches of each ``profile_lm`` call, their NSM against a CPU trace,
-    zeros against random state, where the step's device time goes, and one
-    mamba2 record. Returns the launches of the main point's call and the
-    four records."""
+    launches of each ``profile_lm`` call, zeros against random state, where
+    the step's device time goes, and one mamba2 record (the first record's
+    NSM is checked against a CPU trace beside phase 11's fits,
+    ``nsm_cpu_check``). Returns the launches of the main point's call and
+    the four records."""
     print(f"== phase 10 (main path): profile_lm, {cfg_full.name} bf16 full width")
     cfg = dataclasses.replace(cfg_full, dtype="bfloat16")
     runs = [profile_record(torch, tprof, cfg, b, s, counters) for (b, s) in PROFILE_POINTS]
@@ -900,12 +967,6 @@ def profile_phase(torch, cfg_full, mamba_full, build_model, tprof, tstep, topt, 
     print(f"kernel launches per train step: {per_step} ({per_step['rmsnorm_bwd']} norms forward, "
           f"{per_step['rmsnorm_fwd'] - per_step['rmsnorm_bwd']} again in the remat recompute, "
           f"{per_step['rmsnorm_bwd']} backward), {PROFILE_STEPS + 1} steps a profile_lm call")
-    b0, s0 = PROFILE_POINTS[0]
-    _, step0, specs0, batch0 = tprof.lm_trace(cfg, b0, s0)
-    cpu_edges = tprof.trace_step(step0, (specs0, batch0), device="cpu")["nsm_edges"]
-    check(cpu_edges == records[0].nsm_edges, "NSM traced on card tensors differs from the CPU's")
-    print(f"NSM at {(b0, s0)} traced on card tensors equals the CPU trace "
-          f"({len(cpu_edges)} pairs, {sum(cpu_edges.values()):.0f} edges)")
 
     # the same step on seeded random weights and tokens (the records time zeros)
     b, s = PROFILE_POINTS[-1]
@@ -926,9 +987,22 @@ def profile_phase(torch, cfg_full, mamba_full, build_model, tprof, tstep, topt, 
     del zeros, real, rand_batch
     torch.cuda.empty_cache()
 
-    mamba_rec, _ = profile_record(torch, tprof, dataclasses.replace(mamba_full, dtype="bfloat16"),
-                                  *MAMBA_POINT, counters)
+    mamba = dataclasses.replace(mamba_full, dtype="bfloat16", num_layers=MAMBA_DEPTH)
+    mamba_rec, _ = profile_record(torch, tprof, mamba, *MAMBA_POINT, counters)
     return runs[-1][1], records + [mamba_rec]
+
+
+def nsm_cpu_check(tprof, cfg, record) -> None:
+    """Phase 10's first record's NSM, traced on card tensors, against a trace
+    on the CPU (run beside phase 11's fits: a host-bound trace)."""
+    b0, s0 = record.batch_size, record.input_size
+    t0 = time.perf_counter()
+    _, step0, specs0, batch0 = tprof.lm_trace(cfg, b0, s0)
+    cpu_edges = tprof.trace_step(step0, (specs0, batch0), device="cpu")["nsm_edges"]
+    check(cpu_edges == record.nsm_edges, "NSM traced on card tensors differs from the CPU's")
+    print(f"phase 10's NSM at {(b0, s0)} traced on card tensors equals the CPU trace "
+          f"({len(cpu_edges)} pairs, {sum(cpu_edges.values()):.0f} edges; "
+          f"{time.perf_counter() - t0:.1f} s)")
 
 
 def bench_candidates(seed: int):
@@ -1221,8 +1295,9 @@ def experiment_phase(np, records, tzoo, meanwhile):
     """DNNAbacus on the card's records, as the reference's bench_mre.py and
     bench_unseen.py fit it, its MREs printed as one JSON line; fitted with
     phase 12's predictor beside them, which is returned with the records it
-    was fitted on. ``meanwhile`` (phase 13) runs in this process while the
-    fits run in theirs."""
+    was fitted on. ``meanwhile`` (phase 13, phase 12's chatglm3-6b, phase
+    10's NSM check and phase 15's in-process half) runs in this process while
+    the fits run in theirs."""
     from repro_torch.core.baselines import MLPBaseline, shape_inference_memory
     from repro_torch.core.features import design_matrix, mre, targets
     print(f"== phase 11: DNNAbacus fitted on the card's {len(records)} records")
@@ -1253,7 +1328,7 @@ def experiment_phase(np, records, tzoo, meanwhile):
                                     records, meanwhile)
     print(f"4 DNNAbacus fits in {time.perf_counter() - t0:.1f} s, one worker process each "
           f"(split {len(train)}, seen {len(seen)}, seen {len(seen)}, service {len(unqueried)} "
-          f"records); {waited:.1f} s of it waited for after phase 13")
+          f"records); {waited:.1f} s of it waited for after the work beside them")
     for k, model in models.items():
         t_all, m_all = model.predict(records)
         check(bool(np.isfinite(t_all).all() and np.isfinite(m_all).all()
@@ -1294,9 +1369,11 @@ def experiment_phase(np, records, tzoo, meanwhile):
 
 def service_queries(get_config):
     """Phase 12's queries: qwen2-0.5b at ``PROFILE_POINTS``, then
-    ``SERVICE_ARCHS`` at ``SERVICE_POINT``."""
+    ``SERVICE_ARCHS`` at ``SERVICE_POINT``, cut to ``SERVICE_DEPTH``."""
+    def cut(cfg):
+        return dataclasses.replace(cfg, num_layers=SERVICE_DEPTH.get(cfg.name, cfg.num_layers))
     return ([(get_config(SERVICE_UNSEEN), b, s) for b, s in PROFILE_POINTS]
-            + [(get_config(arch), *SERVICE_POINT) for arch in SERVICE_ARCHS])
+            + [(cut(get_config(arch)), *SERVICE_POINT) for arch in SERVICE_ARCHS])
 
 
 def service_phase(torch, np, abacus, qwen_records, get_config):
@@ -1351,7 +1428,7 @@ def service_phase(torch, np, abacus, qwen_records, get_config):
         traced_flops = rec.extra["traced_flops"]
         offline = dataclasses.replace(rec, flops=traced_flops, extra=None)
         t_off, m_off = (float(v[0]) for v in abacus.predict([offline]))
-        line = dict(model=cfg.name, batch=b, seq=s, time_s=est["time_s"],
+        line = dict(model=cfg.name, layers=cfg.num_layers, batch=b, seq=s, time_s=est["time_s"],
                     memory_bytes=est["memory_bytes"], admitted=est["admitted"],
                     flops_online=rec.flops, flops_traced=traced_flops,
                     offline_time_s=t_off, offline_memory_bytes=m_off,
@@ -1424,7 +1501,7 @@ def fleet_phase(torch, np, abacus, cold, seed_records, qwen_records, get_config,
     each record equal to phase 10's but for time and memory; reports their
     measured costs; refits and publishes generation 1 to every replica; asks
     again; and answers one query from the H100 floor through a replica that
-    sheds everything."""
+    sheds everything. Returns generation 1's predictor."""
     from repro_torch.core.predictor import DNNAbacus
     from repro_torch.serve import (ClusterFrontend, GatewayReplica, SegmentFeedbackStore,
                                    SegmentTraceStore)
@@ -1459,8 +1536,8 @@ def fleet_phase(torch, np, abacus, cold, seed_records, qwen_records, get_config,
                             store_backend="segment")
     fleet.start()
     try:
-        fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_records,
-                   get_config, tprof, counters, t_start, t_rpc)
+        return fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_records,
+                          get_config, tprof, counters, t_start, t_rpc)
     finally:
         fleet.stop()
         remote.shutdown()
@@ -1468,7 +1545,8 @@ def fleet_phase(torch, np, abacus, cold, seed_records, qwen_records, get_config,
 
 def fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_records, get_config,
                tprof, counters, t_start, t_rpc):
-    """Phase 14 on a started fleet (``fleet_phase``)."""
+    """Phase 14 on a started fleet (``fleet_phase``); returns generation 1's
+    predictor."""
     from repro_torch.analysis.roofline import floor_estimate
     from repro_torch.core.predictor import HBM_PER_DEVICE
     from repro_torch.core.scheduler import Machine
@@ -1612,6 +1690,314 @@ def fleet_loop(torch, np, fleet, remote, abacus, cold, seed_records, qwen_record
     print(f"phase 14 wall time {time.perf_counter() - t_start:.1f} s: store-hit queries "
           f"{t_hits:.2f} s, jobs {t_jobs:.1f} s, refit {t_refit:.2f} s, publish "
           f"{t_publish:.3f} s, RPC start-up {t_rpc:.2f} s")
+    return gen.abacus
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (NaNs included): dtype, shape and bytes."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def train_run(torch, get_config, build_model, counters) -> dict:
+    """Phase 15's in-process half, run beside phase 11's fits (the card is
+    free there): qwen2-0.5b at full width and depth through the ``Trainer``
+    for ``TRAIN_STEPS`` steps with checkpoints under ``TRAIN_CKPT_DIR`` and
+    the step calls of ``TRAIN_FAIL_CALLS`` failing once; each step's batch
+    checked against ``batch_at`` and its kernel launches against one train
+    step's; the last checkpoint restored bit for bit, then deleted, so that
+    only the first is left for the launcher (``train_phase``). Returns what
+    ``train_phase`` compares and prints."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.ft.runtime import FailureInjector
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import LoopConfig, Trainer
+    cfg = get_config("qwen2-0.5b")
+    b, s = TRAIN_POINT
+    print(f"== phase 15 (main path), its in-process half, beside phase 11's fits: the Trainer "
+          f"on {cfg.name} {cfg.dtype} full width and depth ({cfg.num_layers} layers, remat "
+          f"{cfg.remat}) at {TRAIN_POINT}, checkpoints, a failed step retried")
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full", f"{cfg.name}: {cfg.dtype}, {cfg.remat}")
+    t_start = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_CKPT_DIR)
+    free = shutil.disk_usage(TRAIN_DIR).free
+    model = build_model(cfg, device=DEVICE)
+    opt_cfg = topt.OptConfig()
+    nbytes = state_bytes(tstep.state_shapes(model, opt_cfg))
+    print(f"free disk {free} B; a checkpoint of the train state {nbytes} B")
+    check(free >= TRAIN_DISK_CKPTS * nbytes,
+          f"{free} B free under {TRAIN_DIR}: phase 15 needs {TRAIN_DISK_CKPTS} checkpoints' "
+          f"worth, {TRAIN_DISK_CKPTS * nbytes} B")
+
+    trainer = Trainer(model, opt_cfg, LoopConfig(steps=TRAIN_STEPS, batch=b, seq=s,
+                                                 ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+                                                 ckpt_dir=TRAIN_CKPT_DIR))
+    per_step, step_fn = step_launches(cfg), trainer.runner.step_fn
+    seen = []
+
+    def checked_step(state, batch):
+        i = int(state["step"])
+        want = trainer.source.batch_at(i)
+        for k in ("tokens", "labels"):
+            check(bool((batch[k].cpu().numpy() == want[k]).all()) and batch[k].dtype == torch.int32,
+                  f"step {i}: the loader's {k} differ from batch_at({i})")
+        before = read_counts(counters)
+        out = step_fn(state, batch)
+        launches = {k: n - before[k] for k, n in read_counts(counters).items()}
+        check(launches == per_step, f"step {i}: kernel launches {launches}, want {per_step}")
+        seen.append(i)
+        return out
+    injector = FailureInjector(fail_on_calls=TRAIN_FAIL_CALLS)
+    trainer.runner.step_fn = injector.wrap(checked_step)
+    saves, real_save = [], ckpt.save
+
+    def timed_save(d, step, state, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(d, step, state, **kw)
+        saves.append((step, time.perf_counter() - t0))
+        return out
+    ckpt.save = timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        log = trainer.run()
+    finally:
+        ckpt.save = real_save
+    t_run = time.perf_counter() - t0
+    launches = read_counts(counters)
+    check(launches == {k: TRAIN_STEPS * n for k, n in per_step.items()},
+          f"the Trainer's kernel launches {launches}, want {TRAIN_STEPS} steps of {per_step}")
+    peak = torch.cuda.max_memory_allocated()
+    runner = trainer.runner
+    check(runner.retries == len(TRAIN_FAIL_CALLS),
+          f"{runner.retries} retries for {len(TRAIN_FAIL_CALLS)} injected failures")
+    check(seen == list(range(TRAIN_STEPS)) and [r["step"] for r in log] == seen,
+          f"steps run {seen}, logged {[r['step'] for r in log]}")
+    check(all(math.isfinite(r["loss"]) for r in log), f"losses {[r['loss'] for r in log]}")
+    saved = [st for st, _ in saves]
+    check(saved == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1, TRAIN_CKPT_EVERY))
+          and ckpt.all_steps(TRAIN_CKPT_DIR) == saved,
+          f"saves {saves}, on disk {ckpt.all_steps(TRAIN_CKPT_DIR)}")
+    times = [r["step_time_s"] for r in log]
+    print(json.dumps({"train": [{k: r[k] for k in ("step", "loss", "grad_norm", "lr",
+                                                   "step_time_s")} for r in log]}))
+    print(f"{TRAIN_STEPS} steps in {t_run:.2f} s: step_time_s {[round(t, 4) for t in times]}, "
+          f"median {statistics.median(times[1:]):.4f} s after the first, against phase 10's "
+          f"{PHASE10_STEP_S} s (run B, PR 18); peak {peak} B; retries {runner.retries}, "
+          f"stragglers {runner.stragglers} (no prediction: the running median's); kernel "
+          f"launches {launches}, {per_step} each step")
+    for step, sec in saves:
+        print(f"save of step {step}: {sec:.2f} s, {nbytes / sec / 1e9:.2f} GB/s")
+
+    # the last checkpoint restored bit for bit, its arrays' CRC-32s kept for the
+    # child's, then deleted: only the first is left
+    final = trainer.state
+    del trainer, model
+    torch.cuda.empty_cache()
+    like = tstep.state_shapes(build_model(cfg, device="meta"), opt_cfg)
+    t0 = time.perf_counter()
+    restored = ckpt.restore(TRAIN_CKPT_DIR, TRAIN_STEPS, like, device=DEVICE)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    flat_final, flat_back = ckpt._flatten(final), ckpt._flatten(restored)
+    check(set(flat_final) == set(flat_back), "the restored state's keys differ")
+    bad = [k for k, v in flat_final.items() if not same_bits(torch, flat_back[k], v)]
+    check(not bad, f"restored leaves differ from the final state: {bad[:5]}")
+    dtypes = sorted({ckpt.dtype_name(v.dtype) for v in flat_final.values()})
+    print(f"restore of step {TRAIN_STEPS}: {t_restore:.2f} s, {nbytes / t_restore / 1e9:.2f} GB/s; "
+          f"{len(flat_final)} leaves ({', '.join(dtypes)}) equal to the final state bit for bit")
+    del final, restored, flat_final, flat_back
+    torch.cuda.empty_cache()
+    last = os.path.join(TRAIN_CKPT_DIR, f"step_{TRAIN_STEPS:08d}")
+    written = npz_members(last)
+    shutil.rmtree(last)
+    check(ckpt.all_steps(TRAIN_CKPT_DIR) == [TRAIN_CKPT_EVERY],
+          f"left {ckpt.all_steps(TRAIN_CKPT_DIR)}")
+    wall = time.perf_counter() - t_start
+    print(f"phase 15's in-process half {wall:.1f} s: the run {t_run:.1f} s (saves "
+          f"{sum(sec for _, sec in saves):.1f}), restore {t_restore:.1f} s")
+    return dict(log=log, peak=peak, written=written, median_s=statistics.median(times[1:]),
+                stragglers=runner.stragglers, wall_s=wall)
+
+
+def train_phase(torch, abacus1, get_config, run: dict, meanwhile=None):
+    """Phase 15's launcher half, after phase 14: ``abacus1``, phase 14's
+    generation-1 predictor, is saved for the launcher and asked about the
+    job through phase 12's trace store (no trace); with only the first
+    checkpoint of ``train_run`` left, ``python -m repro_torch.launch.train
+    --full-size --predict`` resumes in a child process, which must print
+    that estimate, log the in-process run's losses bit for bit and write its
+    final checkpoint (each array's CRC-32 and size, ``run["written"]``).
+    ``meanwhile`` (phase 16) runs here while the child trains."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.serve import PredictionService, SegmentTraceStore
+    from repro_torch.train.loop import LoopConfig
+    cfg = get_config("qwen2-0.5b")
+    b, s = TRAIN_POINT
+    print(f"== phase 15 (main path): the training launcher, crash and resume of {cfg.name} at "
+          f"{TRAIN_POINT} through launch.train --predict with generation 1")
+    t_start = time.perf_counter()
+    predictor = os.path.join(TRAIN_DIR, "abacus")
+    abacus1.save(predictor)
+    svc = PredictionService(abacus1, store=SegmentTraceStore(os.path.join(FLEET_DIR, "traces")))
+    est = svc.predict_one(cfg, b, s)
+    check(svc.stats.traces == 0, f"the job's estimate traced: {svc.stats.as_dict()}")
+    abacus_line = (f"[abacus] predicted step time {est['time_s']*1e3:.1f} ms, "
+                   f"peak memory {est['memory_bytes']/2**30:.2f} GiB")
+    print(f"generation 1's estimate {est['time_s']:.4f} s, {est['memory_bytes']:.0f} B against "
+          f"the in-process run's median step {run['median_s']:.4f} s and peak {run['peak']} B")
+    resume = TRAIN_CKPT_EVERY
+    check(ckpt.all_steps(TRAIN_CKPT_DIR) == [resume], f"left {ckpt.all_steps(TRAIN_CKPT_DIR)}")
+    child_log = os.path.join(TRAIN_DIR, "child_log.jsonl")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name, "--full-size",
+           "--batch", str(b), "--seq", str(s), "--steps", str(TRAIN_STEPS), "--ckpt-dir",
+           TRAIN_CKPT_DIR, "--predict", "--predictor-path", predictor, "--log", child_log]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    out_path, err_path = (os.path.join(TRAIN_DIR, f"child.{ext}") for ext in ("out", "err"))
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen(cmd, env=env, stdout=out_f, stderr=err_f)
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        t1 = time.perf_counter()
+        proc.wait(timeout=TRAIN_CHILD_TIMEOUT)
+        t_wait = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_child = time.perf_counter() - t0
+    with open(out_path) as f_out, open(err_path) as f_err:
+        lines, err = f_out.read().splitlines(), f_err.read()
+    check(proc.returncode == 0, f"the launcher exited {proc.returncode}: {err[-4000:]}")
+    print(f"launcher child ({t_child:.1f} s, {t_wait:.1f} s of it waited for after the work "
+          f"beside it): " + " | ".join(ln for ln in lines if not ln.startswith("{")))
+    check(lines[0] == abacus_line, f"the child's estimate {lines[0]!r}, want {abacus_line!r}")
+    child = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    print(json.dumps({"train_child": child}))
+    with open(child_log) as f:
+        check([json.loads(ln) for ln in f] == child, "the --log file differs from stdout")
+    # the launcher logs every 5th step and the last: a run from step 0 would log
+    # step 0, one resumed at 3 logs step 5 only
+    every = LoopConfig().log_every  # the launcher's
+    want = [r for r in run["log"] if r["step"] >= resume and (r["step"] % every == 0
+                                                              or r["step"] == TRAIN_STEPS - 1)]
+    check([r["step"] for r in child] == [r["step"] for r in want],
+          f"the child logged steps {[r['step'] for r in child]}, want {[r['step'] for r in want]} "
+          f"(resumed at {resume})")
+    for got, ref in zip(child, want):
+        check(all(got[k] == ref[k] for k in ("loss", "ce", "aux", "grad_norm", "lr")),
+              f"step {got['step']}: the child's {got} differs from the in-process {ref}")
+    check(ckpt.all_steps(TRAIN_CKPT_DIR) == [resume, TRAIN_STEPS],
+          f"{ckpt.all_steps(TRAIN_CKPT_DIR)}")
+    theirs = npz_members(os.path.join(TRAIN_CKPT_DIR, f"step_{TRAIN_STEPS:08d}"))
+    check(theirs == run["written"], "the child's final checkpoint differs from the in-process "
+          f"one: {sorted(k for k in run['written'] if theirs.get(k) != run['written'][k])[:5]}")
+    print(f"the child resumed at step {resume}: its logged losses {[r['loss'] for r in child]} "
+          f"equal the in-process run's, and each of its final checkpoint's {len(theirs)} "
+          f"arrays the in-process one's (CRC-32 and size)")
+    shutil.rmtree(TRAIN_DIR)
+    print(f"phase 15 wall time {time.perf_counter() - t_start:.1f} s: the child {t_child:.1f} s "
+          f"with phase 16 beside it (the in-process half took {run['wall_s']:.1f} s beside "
+          f"phase 11's fits)")
+
+
+def npz_members(path) -> dict:
+    """``{array name: (CRC-32, size)}`` of a checkpoint's ``arrays.npz``, from
+    the zip's directory (each member holds an array's ``.npy`` header and
+    bytes)."""
+    with zipfile.ZipFile(os.path.join(path, "arrays.npz")) as zf:
+        return {i.filename: (i.CRC, i.file_size) for i in zf.infolist()}
+
+
+def composed_spec():
+    """``benchmarks/bench_scenarios.py``'s ``composed_spec(smoke=True)``, copied:
+    every fault class in one schedule."""
+    from repro_torch.scenarios import (FaultSpec, ProfileSwap, ScenarioSpec, TenantSpec,
+                                       TrafficSpec)
+    return ScenarioSpec(
+        name="composed", seed=20250808, duration_s=6.0,
+        tenants=[
+            TenantSpec(name="batch", weight=2.0, n_configs=5,
+                       dots=(8.0, 48.0), time_drift=3.0, mem_drift=1.5,
+                       observe_fraction=0.6),
+            TenantSpec(name="interactive", weight=1.0, n_configs=3,
+                       dots=(12.0, 36.0), batches=(2, 4), seqs=(32,),
+                       time_drift=0.8, mem_drift=1.0,
+                       observe_fraction=0.4),
+        ],
+        traffic=TrafficSpec(base_rate=60.0, burst_amplitude=0.9, burst_period_s=4.0),
+        churn_rate=2.0,
+        swaps=[ProfileSwap(t=3.0, tenant="batch", time_drift=2.0, mem_drift=1.2)],
+        faults=[FaultSpec(t=1.5, kind="publish"),
+                FaultSpec(t=2.5, kind="kill", target="r1"),
+                FaultSpec(t=4.0, kind="resize", n=6),
+                FaultSpec(t=5.0, kind="publish")])
+
+
+def scenario_phase():
+    """Phase 16: the composed drift scenario over the port's fleet: the
+    schedule's digest equal here and in children under other hash seeds, then
+    the replay on ``SCENARIO_REPLICAS`` in-process replicas with every oracle
+    of ``check_all`` holding."""
+    from repro_torch.scenarios import (ScenarioRunner, check_all, failed, fit_abacus, generate,
+                                       scenario_trace, schedule_digest,
+                                       schedule_digest_subprocess)
+    from repro_torch.serve import ClusterFrontend
+    print("== phase 16: the composed drift scenario (bench_scenarios' smoke spec) over the "
+          f"port's fleet of {SCENARIO_REPLICAS} in-process replicas")
+    t_start = time.perf_counter()
+    spec = composed_spec()
+    sched = generate(spec)
+    local = schedule_digest(spec)
+    with ThreadPoolExecutor(len(SCENARIO_HASH_SEEDS)) as pool:
+        children = list(pool.map(lambda hs: schedule_digest_subprocess(spec, hs),
+                                 SCENARIO_HASH_SEEDS))
+    t_digest = time.perf_counter() - t_start
+    check(all(d == local for d in children),
+          f"schedule digest {local} here, {children} under PYTHONHASHSEED {SCENARIO_HASH_SEEDS}")
+    print(f"schedule {local[:16]}: {len(sched)} events {sched.counts()}, the same digest in "
+          f"children under PYTHONHASHSEED {SCENARIO_HASH_SEEDS} ({t_digest:.1f} s)")
+    shutil.rmtree(SCENARIO_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    fleet = ClusterFrontend(fit_abacus(), n_replicas=SCENARIO_REPLICAS,
+                            trace_root=os.path.join(SCENARIO_DIR, "traces"),
+                            feedback_root=os.path.join(SCENARIO_DIR, "fb"),
+                            tracer=scenario_trace)
+    fleet.start()
+    try:
+        result = ScenarioRunner(fleet, sched, time_scale=0.0).run()
+    finally:
+        fleet.stop()
+    t_replay = time.perf_counter() - t0
+    oracles = check_all(result)
+    for r in oracles:
+        print(f"oracle {r.name}: {'ok' if r.ok else 'FAILED'} ({r.detail})")
+    bad = failed(oracles)
+    check(not bad, f"oracles failed: {[(r.name, r.detail) for r in bad]}")
+    check(result.stats_after["replicas"] == 6, f"{result.stats_after['replicas']} replicas, want 6")
+    print(json.dumps({"scenario": {"ground": result.ground,
+                                   "resolved": len(result.resolved_outcomes()),
+                                   "replicas": result.stats_after["replicas"],
+                                   "generations": sorted(result.generations),
+                                   "replay_wall_s": result.wall_s}}))
+    shutil.rmtree(SCENARIO_DIR, ignore_errors=True)
+    print(f"phase 16 wall time {time.perf_counter() - t_start:.1f} s: digests {t_digest:.1f} s, "
+          f"fleet and replay {t_replay:.1f} s")
 
 
 def new_archs_phase(torch, F, kops, attention_ref, get_config, build_model, all_plain,
@@ -1783,30 +2169,37 @@ def main() -> int:
     t_fit = time.perf_counter()
     new_archs = {}
 
-    def on_the_card():  # phase 13, while the fits run in their processes
+    chatglm = get_config("chatglm3-6b")
+
+    def meanwhile():  # while the fits run in their processes
         new_archs["launches"], new_archs["flash"] = new_archs_phase(
             torch, F, kops, attention_ref, get_config, build_model, all_plain, DecodeEngine,
             counters)
-    service_abacus, service_records = experiment_phase(np, records, tzoo, on_the_card)
+        t0 = time.perf_counter()
+        print(f"== phase 12: {chatglm.name} at full width, checked and served beside the fits")
+        model_check_phase(torch, "phase 12", chatglm, build_model, all_plain, steps=1)
+        serve_phase(torch, "phase 12", chatglm, build_model, DecodeEngine, counters,
+                    *serve_launches(chatglm))
+        model_layout_main(torch, F, kops, attention_ref, None, CHATGLM_ATTN_SHAPE,
+                          chatglm.num_kv_heads)
+        new_archs["chatglm_s"] = time.perf_counter() - t0
+        nsm_cpu_check(tprof, dataclasses.replace(qwen, dtype="bfloat16"), lm_records[0])
+        new_archs["train"] = train_run(torch, get_config, build_model, counters)
+    service_abacus, service_records = experiment_phase(np, records, tzoo, meanwhile)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
-          f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits with phase 13 "
+          f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits with phase 13, "
+          f"phase 12's {chatglm.name}, phase 10's NSM check and phase 15's in-process half "
           f"beside them {t_end - t_fit:.1f} s")
 
     cold = service_phase(torch, np, service_abacus, lm_records[:len(PROFILE_POINTS)],
                          get_config)
-    t_queries = time.perf_counter()
-    chatglm = get_config("chatglm3-6b")
-    model_check_phase(torch, "phase 12", chatglm, build_model, all_plain, steps=1)
-    serve_phase(torch, "phase 12", chatglm, build_model, DecodeEngine, counters,
-                *serve_launches(chatglm))
-    model_layout_main(torch, F, kops, attention_ref, None, CHATGLM_ATTN_SHAPE,
-                      chatglm.num_kv_heads)
-    print(f"phase 12 wall time {time.perf_counter() - t_end:.1f} s: queries "
-          f"{t_queries - t_end:.1f} s, chatglm3-6b {time.perf_counter() - t_queries:.1f} s")
+    print(f"phase 12 wall time {time.perf_counter() - t_end:.1f} s of queries "
+          f"({chatglm.name}'s {new_archs['chatglm_s']:.1f} s ran beside the fits)")
 
-    fleet_phase(torch, np, service_abacus, cold, service_records, lm_records[:len(PROFILE_POINTS)],
-                get_config, tprof, counters)
+    abacus1 = fleet_phase(torch, np, service_abacus, cold, service_records,
+                          lm_records[:len(PROFILE_POINTS)], get_config, tprof, counters)
+    train_phase(torch, abacus1, get_config, new_archs["train"], meanwhile=scenario_phase)
 
     # each kernel at its main shape, and flash and the SSD scan also at
     # phase 13's: launches are those of the main path's call at that shape

@@ -15,8 +15,11 @@ that autograd tracks); RMSNorm keeps its impl, so on the card its forward
 and backward kernels run. Optional gradient accumulation runs microbatches
 in a loop, the gradients averaged in fp32 (the reference scans them).
 
-The sharding functions of the reference (``state_shardings``,
-``batch_shardings``, ``metric_shardings``) come with ROADMAP Queue A item 15.
+``state_from_jax`` carries a reference checkpoint's arrays into the port's
+state, so a run can continue from the JAX package's ``Trainer`` without
+replaying ``jax.random``. The sharding functions of the reference
+(``state_shardings``, ``batch_shardings``, ``metric_shardings``) come with
+ROADMAP Queue A item 15.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.models.api import use_impls
+from repro_torch.models.module import params_from_jax, unstack_layers
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -105,3 +109,32 @@ def state_shapes(model, opt_cfg: opt_lib.OptConfig):
     return {"params": params,
             "opt": opt_lib.opt_state_shapes(opt_cfg, params),
             "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_from_jax(cfg, arrays: Dict[str, torch.Tensor]):
+    """A reference checkpoint's arrays, keyed by their ``|``-joined tree paths
+    as ``ckpt.checkpoint.read_arrays`` reads them (``params|...``,
+    ``opt|m|...``, ``opt|v|...``, ``opt|master|...``, ``opt|count``,
+    ``step``), as the port's train state on the CPU. The parameters take the
+    model's dtypes (``params_from_jax``); the moments and the fp32 master
+    keep the dtypes they were written in."""
+    groups: Dict[str, Dict[str, torch.Tensor]] = {"params": {}, "m": {}, "v": {}, "master": {}}
+    for key, t in arrays.items():
+        path = key.split("|")
+        if path[0] == "params":
+            groups["params"]["/".join(path[1:])] = t
+        elif path[0] == "opt" and path[1] in groups:
+            groups[path[1]]["/".join(path[2:])] = t
+
+    def carry(name):
+        flat = groups[name]
+        if set(flat) != set(groups["params"]):
+            raise KeyError(f"opt|{name} keys differ from the parameters': "
+                           f"{sorted(set(flat) ^ set(groups['params']))[:5]}")
+        return unstack_layers(flat, cfg)
+
+    params = params_from_jax(cfg, {k: t.float().numpy() for k, t in groups["params"].items()})
+    opt = {"m": carry("m"), "v": carry("v"),
+           "master": carry("master") if groups["master"] else {},
+           "count": arrays["opt|count"].to(torch.int32)}
+    return {"params": params, "opt": opt, "step": arrays["step"].to(torch.int32)}
