@@ -144,7 +144,36 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    smoke size over the port's fleet of four in-process replicas (a kill, a
    resize to six, two publishes), every oracle of ``check_all`` holding
    and the schedule's digest equal in two children under other
-   ``PYTHONHASHSEED``s.
+   ``PYTHONHASHSEED``s;
+17. the ninth main path, the sharded runtime. In a child process beside
+   phase 11's fits, after phase 15's in-process half (``sharded_child``):
+   the unsharded ``Trainer`` on qwen2-0.5b (bf16, full width and depth,
+   ZeRO on) at phase 15's (4, 1024) and seed for ``SHARDED_STEPS`` steps,
+   its final state kept on the host and freed from the card; then the same
+   Trainer on a (1, 1) ``DeviceMesh`` over a one-rank NCCL group
+   (``make_host_mesh``, ``make_sharder``, ``ShardingRules()``): DTensor
+   state from ``state_shardings`` and batches from ``ShardedLoader``, each
+   step's losses and the final state equal to the unsharded run's bit for
+   bit, each step's RMSNorm launches those of one train step
+   (``step_launches``: the kernels on each rank's rows through
+   ``layers._rmsnorm_local``), its checkpoint restored onto the mesh bit for bit; then
+   the int8 error-feedback all-reduce (``allreduce_compressed``) of the
+   step's gradients over that one-rank group equal to
+   ``ef_decompress(ef_compress(g))`` exactly with the residual ``x - q*s``,
+   timed beside a plain ``all_reduce`` of the bf16 gradients (with one rank
+   both time the local passes only: the quantisation against a copy).
+   Beside phase 15's child and phase 16 (``dryrun_start`` /
+   ``dryrun_finish``): ``repro_torch.launch.dryrun``'s ``main`` on
+   qwen2-0.5b's train_4k cell under "dp" with ``--predict`` (phase 14's
+   generation 1) on a fake 256-rank (16, 16) world, host only, at full
+   width cut to ``DRYRUN_DEPTH`` of its 24 layers (the per-device terms
+   scale with the layers), and ``repro_torch.analysis.report`` over its
+   record: status ok, the model FLOPs per device 6 x (494,147,456 less
+   the cut layers' ``QWEN_LAYER_PARAMS`` each) x 256 x 4096 / 256, a
+   useful-FLOP fraction in (0.2, 1.05] and the data-parallel gradient's
+   all-reduce carrying between 1 and ``GRAD_AR_MAX`` times the
+   parameters' bf16 gradient bytes (every gradient reduced over "data"
+   once; the tied table's two uses one by one).
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
@@ -153,7 +182,7 @@ around each ``profile_lm`` call. Nothing in phases 11, 12 and 14-16 is caught: a
 record, a query, a step or a kernel that fails fails the run.
 Phases 3, 6, 12 and 13 run their plain side with every kernel pinned plain;
 phases 4, 7, 12, 13 and 14 count the RMSNorm kernel too (one launch a norm,
-each prefill and each decode step), and phase 15 each train step's. Any
+each prefill and each decode step), and phases 15 and 17 each train step's. Any
 failed check raises, so the script exits nonzero without the final line; so
 it does without a card, or away from the repository's sources.
 The last lines are a JSON object of kernel results, the card's
@@ -364,6 +393,38 @@ TRAIN_CHILD_TIMEOUT = 600.0
 SCENARIO_HASH_SEEDS = (0, 4242)
 SCENARIO_REPLICAS = 4
 SCENARIO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "scenario")
+
+# phase 17: the sharded runtime. The Trainer on a (1, 1) DeviceMesh (NCCL)
+# at phase 15's point and seed for SHARDED_STEPS steps, in a child process
+# (the parent forks fit workers and spawns RPC children, so no NCCL group
+# lives in it), against the unsharded Trainer run first in the same child;
+# the compressed all-reduce over that one-rank group timed COMPRESS_REPS
+# times; and the dry run of qwen2-0.5b's train_4k cell ("dp") on a fake
+# 256-rank (16, 16) world beside phase 15's child, at DRYRUN_DEPTH layers:
+# torch 2.11 on the H100 machine's host traces the full 24 in 117-151 s, 12 in 65-75.
+SHARDED_STEPS = 3
+SHARDED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded")
+SHARDED_CHILD_TIMEOUT = 900.0
+COMPRESS_REPS = 5
+DRYRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dryrun.jsonl")
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k", "dp")
+DRYRUN_TIMEOUT = 600.0
+DRYRUN_DEVICES = 256
+DRYRUN_DEPTH = 12
+# a qwen2-0.5b layer: q and o 896 x 896, k and v 896 x 128, their biases
+# 896 + 2 x 128, the MLP 3 x 896 x 4864, two norms 2 x 896
+QWEN_LAYER_PARAMS = 14_912_384
+DRYRUN_PARAMS = QWEN_PARAMS - (24 - DRYRUN_DEPTH) * QWEN_LAYER_PARAMS
+# the dry run's all-reduce bytes over the gradients' (1.43 at 12 layers: the
+# tied table is reduced once for each of its two uses)
+GRAD_AR_MAX = 1.5
+# the dry run's entry point, its config cut to DRYRUN_DEPTH layers
+DRYRUN_MAIN = ("import dataclasses, sys\n"
+               "import repro_torch.launch.dryrun as dr\n"
+               "full = dr.get_config\n"
+               "dr.get_config = lambda arch: dataclasses.replace(full(arch), "
+               f"num_layers={DRYRUN_DEPTH})\n"
+               "sys.exit(dr.main(sys.argv[1:]))\n")
 
 DEVICE = "cuda"
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
@@ -1916,6 +1977,259 @@ def train_phase(torch, abacus1, get_config, run: dict, meanwhile=None):
           f"phase 11's fits)")
 
 
+def sharded_phase() -> float:
+    """Phase 17's card half: ``sharded_child`` in a child process (no NCCL
+    group in this one), its output printed here. Returns its wall time."""
+    print("== phase 17 (main path): the sharded Trainer on a (1, 1) DeviceMesh (NCCL) against "
+          "the unsharded one, the elastic restore and the compressed all-reduce, in a child")
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sharded-child"],
+                          env=env, capture_output=True, text=True,
+                          timeout=SHARDED_CHILD_TIMEOUT)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"phase 17's child exited {proc.returncode}: "
+          f"{proc.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 17's card half {wall:.1f} s")
+    return wall
+
+
+def sharded_child() -> int:
+    """Phase 17's card half, in its own process: see the module docstring."""
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rn.LIBRARY.load()  # built by the parent into build/, loaded from there
+    counters = {"rmsnorm_fwd": (rn, "fwd_launches"), "rmsnorm_bwd": (rn, "bwd_launches")}
+    sharded_run(torch, get_config, build_model, counters)
+    return 0
+
+
+def sharded_run(torch, get_config, build_model, counters) -> None:
+    """The unsharded Trainer, then the sharded one on a (1, 1) mesh, from one
+    seed and one batch stream; the checkpoint and the compressed all-reduce."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import LoopConfig, Trainer
+    cfg = get_config("qwen2-0.5b")
+    b, s = TRAIN_POINT
+    loop = LoopConfig(steps=SHARDED_STEPS, batch=b, seq=s, log_every=1, zero=True)
+    opt_cfg = topt.OptConfig()
+    per_step = {k: step_launches(cfg)[k] for k in counters}
+    t_start = time.perf_counter()
+
+    def run(trainer, label):
+        step_fn, seen = trainer.runner.step_fn, []
+
+        def counted(state, batch):
+            before = read_counts(counters)
+            out = step_fn(state, batch)
+            launches = {k: n - before[k] for k, n in read_counts(counters).items()}
+            check(launches == per_step, f"{label} step {len(seen)}: launches {launches}, "
+                  f"want {per_step}")
+            seen.append(batch)
+            return out
+        trainer.runner.step_fn = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        log = trainer.run()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        check(launches == {k: SHARDED_STEPS * n for k, n in per_step.items()},
+              f"{label}: launches {launches}, want {SHARDED_STEPS} steps of {per_step}")
+        return log, seen, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    plain = Trainer(build_model(cfg, device=DEVICE), opt_cfg, loop)
+    log0, _, t_plain, peak0 = run(plain, "unsharded")
+    want = {k: v.cpu() for k, v in ckpt._flatten(plain.state).items()}
+    del plain
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh(1, 1, device=DEVICE)
+    check(dist.get_backend() == ("nccl" if DEVICE == "cuda" else "gloo"),
+          f"the mesh's group runs {dist.get_backend()}")
+    model = build_model(cfg, device=DEVICE, sharder=shd.make_sharder(mesh))
+    trainer = Trainer(model, opt_cfg, loop, mesh=mesh, rules=shd.ShardingRules())
+    log1, batches, t_sharded, peak1 = run(trainer, "sharded")
+    from torch.distributed.tensor import DTensor
+    state = trainer.state
+    flat = ckpt._flatten(state)
+    check(all(isinstance(v, DTensor) for v in flat.values())
+          and all(isinstance(t, DTensor) for bt in batches for t in bt.values()),
+          "the sharded run's state or batches are not all DTensors")
+    keys = ("loss", "ce", "aux", "grad_norm", "lr")
+    for r0, r1 in zip(log0, log1):
+        check(all(r0[k] == r1[k] for k in keys),
+              f"step {r1['step']}: sharded {[r1[k] for k in keys]} != unsharded "
+              f"{[r0[k] for k in keys]}")
+    bad = [k for k, v in flat.items() if not same_bits(torch, v.full_tensor().cpu(), want[k])]
+    check(not bad, f"the sharded final state differs from the unsharded one: {bad[:5]}")
+    del want
+    print(json.dumps({"sharded_train": [{k: r[k] for k in ("step",) + keys + ("step_time_s",)}
+                                        for r in log1]}))
+    print(f"{SHARDED_STEPS} steps each on {cfg.name} {cfg.dtype} at {TRAIN_POINT}: unsharded "
+          f"{t_plain:.2f} s (peak {peak0} B), on the {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"mesh {t_sharded:.2f} s (peak {peak1} B), step_time_s "
+          f"{[round(r['step_time_s'], 4) for r in log0]} against "
+          f"{[round(r['step_time_s'], 4) for r in log1]}; losses and all {len(flat)} leaves of "
+          f"the final state equal bit for bit; RMSNorm launches {per_step} each step")
+
+    # the checkpoint of the sharded state, restored onto the mesh
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(SHARDED_DIR, SHARDED_STEPS, state)
+    t_save = time.perf_counter() - t0
+    like = tstep.state_shapes(build_model(cfg, device="meta"), opt_cfg)
+    t0 = time.perf_counter()
+    back = ckpt.restore(SHARDED_DIR, SHARDED_STEPS, like, trainer.state_sh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    flat_back = ckpt._flatten(back)
+    bad = [k for k, v in flat.items()
+           if not (isinstance(flat_back[k], DTensor)
+                   and tuple(flat_back[k].placements) == tuple(v.placements)
+                   and same_bits(torch, flat_back[k].to_local(), v.to_local()))]
+    check(not bad, f"restored leaves differ: {bad[:5]}")
+    dtypes = sorted({ckpt.dtype_name(v.dtype) for v in flat.values()})
+    print(f"checkpoint of the sharded state: save {t_save:.2f} s, restore onto the mesh "
+          f"{t_restore:.2f} s; {len(flat)} leaves ({', '.join(dtypes)}) equal bit for bit")
+    del back, flat_back
+    shutil.rmtree(SHARDED_DIR)
+
+    # the compressed all-reduce of the step's gradients over the one-rank group
+    batch = batches[-1]
+    _, _, grads = trainer.step_fn.compute_grads(state["params"], batch)
+    local = {k: g.to_local() for k, g in grads.items()}
+    del grads, trainer, state, flat
+    torch.cuda.empty_cache()
+    group = mesh.get_group("data")
+    ef = comp.ef_init(local)
+    mean, residual = comp.allreduce_compressed(local, ef, group)
+    packed, resid_want = comp.ef_compress(local, ef)
+    exact = comp.ef_decompress(packed)
+    bad = [k for k in local if not same_bits(torch, mean[k], exact[k])]
+    check(not bad, f"the one-rank compressed mean differs from ef_decompress(ef_compress(g)): "
+          f"{bad[:5]}")
+    bad = [k for k in local if not same_bits(torch, residual[k], resid_want[k])
+           or not same_bits(torch, residual[k], local[k].float() + ef[k]
+                            - packed.q[k].float() * packed.scale[k])]
+    check(not bad, f"the residual differs from x - q*s: {bad[:5]}")
+    del mean, residual, packed, resid_want, exact
+
+    def compressed():
+        comp.allreduce_compressed(local, ef, group)
+
+    def plain_allreduce():
+        for g in local.values():
+            dist.all_reduce(g.clone(), group=group)
+    t_comp, t_ar = (time_ms(torch, fn, reps=COMPRESS_REPS, warmup=1)
+                    for fn in (compressed, plain_allreduce))
+    nbytes = sum(g.numel() * g.element_size() for g in local.values())
+    print(json.dumps({"compressed_allreduce": {
+        "ranks": dist.get_world_size(group), "leaves": len(local), "grad_bytes": nbytes,
+        "ms": t_comp, "plain_allreduce_ms": t_ar,
+        "note": "one rank: both time local passes only (the int8 quantisation and "
+                "decompression against a copy of the bf16 gradients), no link"}}))
+    print(f"compressed all-reduce of {len(local)} gradients ({nbytes} B) over "
+          f"{dist.get_world_size(group)} rank: {t_comp:.3f} ms against a plain all_reduce's "
+          f"{t_ar:.3f} ms (one rank: the quantisation pass only); the mean equals "
+          f"ef_decompress(ef_compress(g)) and the residual x - q*s exactly")
+    dist.destroy_process_group()
+    print(f"phase 17's child: {time.perf_counter() - t_start:.1f} s")
+
+
+def dryrun_start(predictor: str):
+    """Phase 17's host half, started: ``repro_torch.launch.dryrun``'s
+    ``main`` on ``DRYRUN_CELL`` cut to ``DRYRUN_DEPTH`` layers, on a fake
+    256-rank world with ``--predict``."""
+    arch, shape, scheme = DRYRUN_CELL
+    print(f"== phase 17: the dry run of {arch} {shape} ({scheme}), {DRYRUN_DEPTH} of 24 "
+          f"layers, on a fake {DRYRUN_DEVICES}-rank (16, 16) world with generation 1's "
+          f"estimate, beside phase 15's child")
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    stores = os.path.join(os.path.dirname(DRYRUN_OUT), "dryrun_stores")
+    shutil.rmtree(stores, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-c", DRYRUN_MAIN, "--arch", arch, "--shape", shape,
+           "--scheme", scheme, "--predict", "--predictor-path", predictor,
+           "--trace-store", os.path.join(stores, "traces"),
+           "--feedback-store", os.path.join(stores, "feedback"), "--out", DRYRUN_OUT]
+    return dict(proc=subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True),
+                t0=time.perf_counter(), stores=stores)
+
+
+def dryrun_finish(proc, t0: float, stores: str) -> float:
+    """Phase 17's host half, waited for and checked; its record printed and
+    read by ``repro_torch.analysis.report``. Returns its wall time."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the dry run exited {proc.returncode}: {err[-4000:]}")
+    print(out, end="")
+    with open(DRYRUN_OUT) as f:
+        (rec,) = [json.loads(line) for line in f]
+    arch, shape, scheme = DRYRUN_CELL
+    want_mflops = 6 * DRYRUN_PARAMS * 256 * 4096 / DRYRUN_DEVICES
+    colls = rec.get("collectives", {})
+    grad_bytes = 2 * DRYRUN_PARAMS  # bf16; the fp32 norm scales add 0.01%
+    # the record keeps the reference's keys (a count by kind): an all-reduce
+    # is weighted 2x and every other kind 1x, so the weighted bytes less the
+    # raw ones are the all-reduces' bytes
+    ar_bytes = rec["collective_weighted_bytes"] - rec["collective_bytes"]
+    check(rec["status"] == "ok" and rec["devices"] == DRYRUN_DEVICES, f"dry run record {rec}")
+    check(rec["model_flops_per_device"] == want_mflops,
+          f"model FLOPs per device {rec['model_flops_per_device']}, want {want_mflops}")
+    check(0.2 < rec["useful_flop_fraction"] <= 1.05,
+          f"useful FLOP fraction {rec['useful_flop_fraction']}")
+    check(grad_bytes <= ar_bytes <= GRAD_AR_MAX * grad_bytes,
+          f"all-reduce bytes {ar_bytes} against the gradients' {grad_bytes}: {colls}")
+    check("abacus_time_s" in rec and "abacus_error" not in rec,
+          f"no estimate on the record: {rec.get('abacus_error')}")
+    keys = ("flops_per_device", "bytes_per_device", "collective_bytes",
+            "collective_weighted_bytes", "t_compute_s", "t_memory_s", "t_collective_s",
+            "bottleneck", "mfu_bound", "useful_flop_fraction", "model_flops_per_device",
+            "peak_hbm_gib", "argument_gib", "temp_gib", "abacus_time_s", "abacus_memory_gib",
+            "abacus_generation", "lower_s", "compile_s")
+    print(json.dumps({"dryrun": {"arch": arch, "shape": shape, "scheme": scheme,
+                                 "layers": DRYRUN_DEPTH,
+                                 "devices": rec["devices"],
+                                 "collectives": {k: v["count"] for k, v in colls.items()},
+                                 "all_reduce_bytes": ar_bytes, "grad_bytes": grad_bytes,
+                                 **{k: rec.get(k) for k in keys}}}))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    table = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report", DRYRUN_OUT],
+                           env=env, capture_output=True, text=True, timeout=120)
+    check(table.returncode == 0 and f"| {arch} | {shape} | {scheme} |" in table.stdout,
+          f"the report failed: {table.stderr[-2000:]}")
+    print(table.stdout, end="")
+    shutil.rmtree(stores, ignore_errors=True)
+    print(f"phase 17's dry run {wall:.1f} s (trace {rec['lower_s']} s, analysis "
+          f"{rec['compile_s']} s), host only")
+    return wall
+
+
 def npz_members(path) -> dict:
     """``{array name: (CRC-32, size)}`` of a checkpoint's ``arrays.npz``, from
     the zip's directory (each member holds an array's ``.npy`` header and
@@ -2185,6 +2499,7 @@ def main() -> int:
         new_archs["chatglm_s"] = time.perf_counter() - t0
         nsm_cpu_check(tprof, dataclasses.replace(qwen, dtype="bfloat16"), lm_records[0])
         new_archs["train"] = train_run(torch, get_config, build_model, counters)
+        new_archs["sharded"] = sharded_phase()
     service_abacus, service_records = experiment_phase(np, records, tzoo, meanwhile)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
@@ -2199,7 +2514,15 @@ def main() -> int:
 
     abacus1 = fleet_phase(torch, np, service_abacus, cold, service_records,
                           lm_records[:len(PROFILE_POINTS)], get_config, tprof, counters)
-    train_phase(torch, abacus1, get_config, new_archs["train"], meanwhile=scenario_phase)
+    dryrun = {}
+
+    def beside_the_launcher():  # phases 16 and 17's dry run while the launcher trains
+        started = dryrun_start(os.path.join(TRAIN_DIR, "abacus"))
+        scenario_phase()
+        dryrun["wall_s"] = dryrun_finish(**started)
+    train_phase(torch, abacus1, get_config, new_archs["train"], meanwhile=beside_the_launcher)
+    print(f"phase 17 wall time: the sharded child {new_archs['sharded']:.1f} s beside phase 11's "
+          f"fits, the dry run {dryrun['wall_s']:.1f} s beside phase 15's child")
 
     # each kernel at its main shape, and flash and the SSD scan also at
     # phase 13's: launches are those of the main path's call at that shape
@@ -2242,4 +2565,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sharded-child"]:  # phase 17's card half, spawned by sharded_phase
+        sys.exit(sharded_child())
     sys.exit(main())

@@ -1,1 +1,3 @@
-"""Analysis helpers of the port: the zero-trace roofline floor."""
+"""Analysis of the port: the dry run's cost model on traced per-rank graphs
+(``hlo``), its roofline terms and the zero-trace floor (``roofline``), and
+the dry-run report table (``report``)."""

@@ -13,8 +13,15 @@ Tensors leave the card with ``.detach().cpu()``. A bf16 leaf is written as
 the reference writes one: its 16 bits as numpy ``V2``, with ``"bfloat16"``
 in the index, and is read back bit for bit by that index dtype. So the port
 also restores a bf16 checkpoint the reference wrote, which the reference's
-own ``restore`` cannot cast (ROADMAP Queue C). Restoring onto a mesh
-(``shardings``) comes with ROADMAP Queue A item 15.
+own ``restore`` cannot cast (ROADMAP Queue C).
+
+A state of DTensor leaves is written as the reference writes a sharded
+one: the logically unsharded arrays. Every rank assembles each leaf
+(``full_tensor``, a collective, in the same order on every rank) and rank 0
+alone writes; the ranks meet at a barrier after the rename. ``restore``
+with ``shardings`` (a tree of ``NamedSharding`` parallel to ``like``)
+places each leaf as a DTensor on its mesh, so a checkpoint written on one
+mesh restores onto another (elastic restart).
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
 
 _SEP = "|"
 BF16 = "bfloat16"
@@ -74,13 +84,29 @@ def from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, order="C"))
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     """Atomically write ``state`` for ``step``. Returns the final path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(state)
+    sharded = any(_is_dtensor(v) for v in flat.values())
+    if sharded:
+        flat = {k: v.full_tensor() if _is_dtensor(v) else v for k, v in flat.items()}
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        _write(ckpt_dir, final, step, flat, keep)
+    if sharded and dist.get_world_size() > 1:
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat, keep: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
-        flat = _flatten(state)
         arrays = {k: to_numpy(v) for k, v in flat.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         index = {
@@ -99,7 +125,6 @@ def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -139,21 +164,25 @@ def restore(ckpt_dir: str, step: int, like, shardings=None, device=None):
     """Restore into the structure of ``like`` (a state, or a tree of ``meta``
     tensors as ``train.step.state_shapes`` gives), each leaf cast to the
     dtype of its ``like`` leaf. The leaves go to ``device``; by default each
-    to its ``like`` leaf's device, and a ``meta`` leaf's to the card."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto a mesh comes with ROADMAP Queue A item 15; "
-                                  "pass shardings=None")
+    to its ``like`` leaf's device, and a ``meta`` leaf's to the card. With
+    ``shardings`` each leaf becomes a DTensor laid out as its entry says, on
+    its mesh's device type unless ``device`` is given."""
     arrays = read_arrays(ckpt_dir, step)
     flat_like = _flatten(like)
     missing = set(flat_like) - set(arrays)
     if missing:
         raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]}...")
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     out = {}
     for key, ref in flat_like.items():
         t = arrays[key]
+        sh = flat_sh.get(key)
         if isinstance(ref, torch.Tensor):
             dev = device if device is not None else (
+                sh.mesh.device_type if sh is not None else
                 "cuda" if ref.device.type == "meta" else ref.device)
             t = t.to(device=dev, dtype=ref.dtype)
+        if sh is not None:
+            t = shd.distribute(t, sh)
         out[key] = t
     return _unflatten(like, out)

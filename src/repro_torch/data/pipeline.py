@@ -6,8 +6,11 @@ so a restart resumes the exact token stream from the checkpointed step;
 reference's byte for byte. ``ShardedLoader`` turns each host batch into
 int32 tensors on its ``device`` from a producer thread; without a device the
 batches stay on the host (CPU tensors), as the reference's stay numpy
-without shardings. Placing batches on a mesh (``shardings``) comes with
-ROADMAP Queue A item 15.
+without shardings. With ``shardings`` ({key: NamedSharding}, as
+``train.step.batch_shardings`` gives) each batch is a DTensor on the mesh:
+every rank makes the same host batch from ``batch_at(step)`` and keeps its
+own slice (``distributed.sharding.distribute``), so no scatter runs; the
+slices go to the mesh's device type.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as shd
 
 
 class SyntheticLM:
@@ -80,10 +85,10 @@ class ShardedLoader:
 
     def __init__(self, source, shardings=None, start_step: int = 0,
                  prefetch: int = 2, device=None):
-        if shardings is not None:
-            raise NotImplementedError("ShardedLoader: placing batches on a mesh comes with "
-                                      "ROADMAP Queue A item 15; pass shardings=None")
         self.source = source
+        self.shardings = shardings
+        if shardings is not None and device is None:
+            device = next(iter(shardings.values())).mesh.device_type
         self.device = None if device is None else torch.device(device)
         self.step = start_step
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
@@ -96,6 +101,8 @@ class ShardedLoader:
                for k, v in batch.items()}
         if self.device is not None:
             out = {k: v.to(self.device) for k, v in out.items()}
+        if self.shardings is not None:
+            out = {k: shd.distribute(v, self.shardings[k]) for k, v in out.items()}
         return out
 
     def _producer(self):

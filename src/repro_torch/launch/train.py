@@ -7,8 +7,13 @@ DNNAbacus admission control estimates the step time and peak memory of the
 requested job *before* anything is allocated, refuses a job predicted to
 run out of the service's memory budget (exit code 2), and hands the
 predicted step time to the straggler detector: the paper's scheduling
-application wired into the launcher. A data or model axis above 1 comes
-with ROADMAP Queue A item 15.
+application wired into the launcher.
+
+With ``--data`` x ``--model-par`` above 1 the job trains on a
+``("data", "model")`` mesh (``launch.mesh.make_host_mesh``, clamped to the
+world as the reference clamps to its devices) with the model's sharder, as
+DTensors: under ``torchrun --nproc-per-node N`` over the launched world, and
+in a lone process over a one-rank world, where the mesh is (1, 1).
 """
 
 from __future__ import annotations
@@ -43,13 +48,12 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import LoopConfig, Trainer
 
-    if args.data * args.model_par > 1:
-        raise NotImplementedError("--data x --model-par > 1 needs the multi-device code of "
-                                  "ROADMAP Queue A item 15")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("launch.train: CUDA is not available; the job runs on the card "
@@ -57,6 +61,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if not args.full_size:
         cfg = reduced_config(cfg)
+    mesh = (make_host_mesh(args.data, args.model_par, device=device)
+            if args.data * args.model_par > 1 else None)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
 
     predicted = None
     if args.predict:
@@ -77,13 +85,18 @@ def main(argv=None) -> int:
             print("[abacus] no fitted predictor found; fit one and save it "
                   "(DNNAbacus.save) at --predictor-path first", file=sys.stderr)
 
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, sharder=shd.make_sharder(mesh))
     loop_cfg = LoopConfig(steps=args.steps, batch=args.batch, seq=args.seq,
                           ckpt_dir=args.ckpt_dir, accum=args.accum,
                           zero=not args.no_zero,
                           predicted_step_s=predicted)
-    trainer = Trainer(model, opt_lib.OptConfig(), loop_cfg)
+    trainer = Trainer(model, opt_lib.OptConfig(), loop_cfg, mesh=mesh)
     log = trainer.run()
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0  # rank 0 reports for the job
+    if mesh is not None:
+        print(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{mesh.size()} rank(s) on {mesh.device_type}", flush=True)
     for rec in log:
         print(json.dumps(rec))
     if args.log:

@@ -15,19 +15,21 @@ from repro_torch.models.switch import SWITCHES
 _UNSET = "unset"
 
 
-def build_model(cfg: ModelConfig, device=None) -> StackModel:
+def build_model(cfg: ModelConfig, device=None, sharder=None) -> StackModel:
     """Build the model's modules on ``device``, by default the card.
 
     The parameters are allocated but not initialised: call
     ``model.init(generator)`` or load weights. ``device="cpu"`` builds on
     the CPU, and ``"meta"`` allocates nothing (for counting); without a
     device and without CUDA this raises rather than falling back to the CPU.
+    ``sharder`` is the activation-constraint hook of a mesh
+    (``distributed.sharding.make_sharder``), None on one device.
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: CUDA is not available; the port runs on the "
                            "card by default (pass device='cpu' to ask for the CPU)")
-    return StackModel(cfg, device)
+    return StackModel(cfg, device, sharder)
 
 
 @contextlib.contextmanager

@@ -15,6 +15,11 @@ implementation (the reference's ``"xla"``) or the hand-written CUDA
 flash-attention kernel (the reference's ``"pallas"``). By default the kernel
 takes tensors on the card and the plain path tensors on the CPU;
 ``set_attention_impl`` pins one of them.
+
+``shard`` is the model's sharder hook (``distributed.sharding.make_sharder``),
+constraining q/k/v, the context and the decode scores at the reference's
+points; with a sharder the plain path takes K/V expanded to the full heads,
+as the reference constrains them. Without one nothing changes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import (constrain, local_map, split_ready, whole_dim,
+                                              whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -70,7 +77,7 @@ def _project_q(p, cfg, x):
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    return q.reshape(x.shape[0], x.shape[1], h, hd)
+    return split_ready(q, -1, h).reshape(x.shape[0], x.shape[1], h, hd)
 
 
 def _project_kv(p, cfg, src, dtype):
@@ -81,12 +88,12 @@ def _project_kv(p, cfg, src, dtype):
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
     shp = (src.shape[0], src.shape[1], kv, hd)
-    return k.reshape(shp), v.reshape(shp)
+    return split_ready(k, -1, kv).reshape(shp), split_ready(v, -1, kv).reshape(shp)
 
 
 def _out_proj(p, ctx, dtype):
     b, s = ctx.shape[:2]
-    return ctx.reshape(b, s, -1) @ p["wo"].to(dtype)
+    return whole_sequence_grad(ctx.reshape(b, s, -1) @ p["wo"].to(dtype))
 
 
 def _expand_kv(k, h: int):
@@ -124,6 +131,8 @@ def dot_attention(q, k, v, mask=None):
     statistics stay in bf16, as in the reference's plain path; the kernel
     keeps fp32 statistics instead, so it is held against ``attention_ref``.
     """
+    if _is_dtensor(q) and mask is None:
+        return _per_shard(dot_attention, q, k, v)
     hd = q.shape[-1]
     stat = torch.float32 if q.dtype == torch.float32 else q.dtype
     scale, neg = _stat_consts(hd, stat)
@@ -144,9 +153,31 @@ def _use_kernel(q) -> bool:
     return _SWITCH.use_kernel(q)
 
 
+def _per_shard(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` on DTensors, run on each rank's batch and head
+    shards (``local_map``): attention is independent across batch rows and
+    heads, and DTensor cannot multiply a batch and a head split over two mesh
+    dims once they merge into one. K/V are expanded to the query heads
+    first; the sequence and head dims are made whole."""
+    from torch.distributed.tensor import Replicate
+
+    h = q.shape[2]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    pls = [p if p.is_shard() and p.dim % 4 in (0, 2) else Replicate() for p in q.placements]
+    fn_local = local_map(fn, pls, (pls, pls, pls) + (None,) * len(rest), q.device_mesh)
+    return fn_local(q, k, v, *rest)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def causal_attention(q, k, v):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with KV dividing H. The kernel reads
     grouped K/V as they are; the plain path expands them to H heads first."""
+    if _is_dtensor(q):
+        return _per_shard(causal_attention, q, k, v)
     if _use_kernel(q):
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True)
@@ -174,17 +205,27 @@ def _chunked_causal_attention(q, k, v, block_q: int):
 # ---------------------------------------------------------------------------
 
 
-def apply_self_attn(p, cfg, x, positions, causal=True):
+def apply_self_attn(p, cfg, x, positions, causal=True, shard=None):
     """Full-sequence self-attention. Returns (y, (k_cache, v_cache))."""
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x, x.dtype)
     q = _apply_rope(cfg, q, positions)
     k = _apply_rope(cfg, k, positions)
+    kc, vc = k, v
+    if shard is not None:
+        q = constrain(shard, "acts_qkv", q)
+        k, v = _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads)
+        sq = q.shape[1]
+        # long sequences: K/V replicated over model before the q-block walk
+        name = ("acts_kv_repl" if sq > CHUNK_THRESHOLD and sq % CHUNK_Q == 0
+                else "acts_qkv")
+        k, v = constrain(shard, name, k), constrain(shard, name, v)
     if causal:
         ctx = causal_attention(q, k, v)  # expands K/V only on the plain path
     else:
         ctx = dot_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads))
-    return _out_proj(p, ctx, x.dtype), (k, v)
+    ctx = constrain(shard, "acts_qkv", ctx)
+    return _out_proj(p, ctx, x.dtype), (kc, vc)
 
 
 def apply_cross_attn(p, cfg, x, memory):
@@ -196,7 +237,7 @@ def apply_cross_attn(p, cfg, x, memory):
     return _out_proj(p, ctx, x.dtype), (k, v)
 
 
-def decode_self_attn(p, cfg, x_t, cache, pos):
+def decode_self_attn(p, cfg, x_t, cache, pos, shard=None):
     """One-token decode. x_t (B,1,D); cache {"k","v"} (B,Smax,KV,hd);
     pos (B,) positions (attention masks per request).
 
@@ -218,10 +259,14 @@ def decode_self_attn(p, cfg, x_t, cache, pos):
     mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
     b = q.shape[0]
     h, kv, hd = _heads(cfg)
-    q5 = q.reshape(b, 1, kv, h // kv, hd)
+    # on a mesh the query's heads are made whole: the cache splits its
+    # sequence (the flash-decoding split), and a head split beside a batch
+    # split would merge into one DTensor cannot multiply
+    q5 = whole_dim(q, 2).reshape(b, 1, kv, h // kv, hd)
     stat = torch.float32 if q.dtype == torch.float32 else q.dtype
     scale, neg = _stat_consts(hd, stat)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k.to(q.dtype)).to(stat) * scale
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k.to(q.dtype)).to(stat)
+    scores = constrain(shard, "decode_scores5", scores) * scale
     probs = _softmax(torch.where(mask, scores, neg)).to(q.dtype)
     ctx = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype))
     ctx = ctx.reshape(b, 1, h, hd)

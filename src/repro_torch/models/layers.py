@@ -10,17 +10,21 @@ RMSNorm runs through either the plain PyTorch math (the reference's inline
 ``apply_norm``) or the hand-written CUDA RMSNorm kernels, forward and
 backward (the reference's Pallas ``rmsnorm``, which no model path of the
 reference calls). By default the kernels take tensors on the card and the
-plain math tensors on the CPU; ``set_norm_impl`` pins one of them. LayerNorm
+plain math tensors on the CPU; ``set_norm_impl`` pins one of them. On a
+DTensor the kernels run on each rank's rows (``_rmsnorm_local``). LayerNorm
 always runs plain.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -56,8 +60,68 @@ def norm_spec(cfg, d=None):
     return {"scale": spec((d,), ("embed",), "ones", dtype=torch.float32)}
 
 
+def _rmsnorm_local(x, gain, eps: float):
+    """The RMSNorm kernels on a DTensor: each rank runs them on its own rows
+    (any count of them, even or not: the whole shape is carried over). A
+    sharded or partial normalised dim, and the gain, are made whole first;
+    the gain's gradient is then the sum of the ranks' parts over the mesh
+    dims that split the rows. A row dim so short that a rank would hold
+    none of it (the kernels launch on one row or more) is made whole, with
+    a warning."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.kernels import ops as kops
+
+    mesh, last = x.device_mesh, x.ndim - 1
+
+    def filled(d):  # every rank keeps a row of dim d (DTensor splits as torch.chunk)
+        k = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim % x.ndim == d)
+        return -(-x.shape[d] // k) * (k - 1) < x.shape[d]
+
+    rows = [p if p.is_shard() and p.dim % x.ndim != last and filled(p.dim % x.ndim)
+            else Replicate() for p in x.placements]
+    short = [p for p, r in zip(x.placements, rows) if p.is_shard() and p.dim % x.ndim != last
+             and r.is_replicate()]
+    if short:
+        warnings.warn(f"RMSNorm of {tuple(x.shape)} {tuple(x.placements)}: rows made whole "
+                      f"on every rank, a split would leave a rank none", stacklevel=2)
+    if list(x.placements) != rows:
+        x = x.redistribute(mesh, rows)
+    if isinstance(gain, DTensor):
+        whole = [Replicate()] * mesh.ndim
+        if list(gain.placements) != whole:
+            gain = gain.redistribute(mesh, whole)
+        gain = gain.to_local(grad_placements=[Partial() if p.is_shard() else Replicate()
+                                              for p in rows])
+    y = kops.rmsnorm(x.to_local(grad_placements=rows), gain, eps)
+    return DTensor.from_local(y, mesh, rows, run_check=False, shape=x.shape, stride=x.stride())
+
+
+def _split_on(t, dim: int) -> bool:
+    """Whether ``t`` is a DTensor split over its dim ``dim``."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor) and any(p.is_shard() and p.dim % t.ndim == dim % t.ndim
+                                          for p in t.placements)
+
+
 def apply_norm(p, x, eps: float = 1e-6):
+    # on a DTensor the residual stream is summed first where a projection
+    # left it partial over the model shards (prefill constrains it once a
+    # layer, after the norms), since the norm is not linear; under sequence
+    # parallelism the norm runs on the sequence shards of the residual stream
+    # and its output is gathered before the projections that follow
+    # (Megatron's all-gather)
+    return shd.whole_sequence(_norm(p, shd.reduce_partials(x), eps))
+
+
+def _norm(p, x, eps: float):
     if "bias" not in p and _use_kernel(x):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return _rmsnorm_local(x, p["scale"], eps)
         from repro_torch.kernels import ops as kops
         return kops.rmsnorm(x, p["scale"], eps)
     dt = x.dtype
@@ -121,10 +185,16 @@ def mlp_spec(cfg, d_ff=None):
 def apply_mlp(p, x):
     wi = p["wi"].to(x.dtype)
     d, _, f = wi.shape
-    gu = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
-    g, u = gu[..., 0, :], gu[..., 1, :]
+    if _split_on(wi, 2):
+        # a DTensor split over the hidden dim: gate and up apart (fusing
+        # them would merge the split dim into a strided one DTensor cannot
+        # multiply)
+        g, u = x @ wi[:, 0], x @ wi[:, 1]
+    else:
+        gu = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
+        g, u = gu[..., 0, :], gu[..., 1, :]
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["wo"].to(x.dtype)
+    return shd.whole_sequence_grad(h @ p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +219,44 @@ def embed_spec(cfg):
 
 
 def embed_tokens(p, tokens, dtype):
-    return F.embedding(tokens.long(), p["table"]).to(dtype)
+    table = p["table"]
+    if _vocab_dims(table):
+        return _vocab_parallel_lookup(tokens.long(), table).to(dtype)
+    return F.embedding(tokens.long(), table).to(dtype)
+
+
+def _vocab_dims(table):
+    """The mesh dims over which a DTensor table's rows (the vocab) are split."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(table, DTensor):
+        return []
+    return [i for i, p in enumerate(table.placements) if p.is_shard() and p.dim == 0]
+
+
+def _vocab_parallel_lookup(tokens, table):
+    """Embedding lookup in a vocab-sharded table (Megatron's vocab-parallel
+    embedding): each rank looks up the tokens of its own rows, zeros the
+    others, and the rows are summed across the vocab shards. DTensor's own
+    lookup leaves a masked partial that it fails to reduce on a 2-D mesh; this
+    sum adds one row to zeros, so it equals the plain lookup bit for bit."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, dims = table.device_mesh, _vocab_dims(table)
+    tok_pl = tuple(Replicate() if i in dims else p for i, p in enumerate(tokens.placements))
+    tab_pl = tuple(p if i in dims else Replicate() for i, p in enumerate(table.placements))
+    out_pl = tuple(Partial() if i in dims else p for i, p in enumerate(tok_pl))
+
+    def lookup(tok, tab):
+        shard = 0
+        for i in dims:  # the rank's vocab shard, major to minor
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        idx = tok - shard * tab.shape[0]
+        mine = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(torch.where(mine, idx, 0), tab)
+        return rows * mine[..., None].to(rows.dtype)
+
+    return shd.local_map(lookup, list(out_pl), (tok_pl, tab_pl), mesh)(tokens, table)
 
 
 def unembed(p, x, softcap: float = 0.0, vocab: int = 0):
@@ -164,12 +271,38 @@ def unembed(p, x, softcap: float = 0.0, vocab: int = 0):
     return logits
 
 
+def _gold(logits, labels):
+    """The label's logit. On a DTensor, the one-hot masked sum: it keeps the
+    batch and vocab shards where they are (each rank reduces over its own
+    columns), where DTensor gathers the whole batch for ``gather``; it adds
+    one logit to zeros, so it equals the gather bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(labels[..., None] == cols, logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def _gathered(t):
+    """A DTensor of token losses made whole on every rank (B x S values, a
+    small all-gather): the mean then sums in the unsharded order, and its
+    gradient is split back to the token shards before it meets the vocab
+    (DTensor would otherwise spread a replicated gradient over the whole
+    (B, S, V) logits and copy a batch shard of it)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in fp32. logits (..., V), labels (...) int."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    gold = _gold(logits, labels.long())
+    nll = _gathered(lse - gold)
     if mask is None:
         return nll.mean()
-    mask = mask.float()
+    mask = _gathered(mask.float())
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

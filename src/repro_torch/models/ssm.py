@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_map, whole_sequence_grad
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -88,10 +89,36 @@ def ssd_chunked(xb, dt, a_neg, bmat, cmat, chunk: int):
     xb (B,L,H,P) pre-scaled inputs (x*dt); dt (B,L,H); a_neg (H,) negative;
     bmat/cmat (B,L,N). Returns y (B,L,H,P), final state (B,H,N,P) fp32.
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(xb, DTensor):
+        return _per_shard(xb, dt, a_neg, bmat, cmat, chunk)
     if _use_kernel(xb):
         from repro_torch.kernels import ops as kops
         return kops.ssd_scan(xb, dt, a_neg, bmat, cmat, chunk)
     return ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk)
+
+
+def _per_shard(xb, dt, a_neg, bmat, cmat, chunk: int):
+    """The scan on DTensors, run on each rank's batch and head shards
+    (``local_map``): it is independent across both, and DTensor cannot
+    multiply a batch and heads split over two mesh dims once they merge.
+    Per mesh dim: the batch split (every input but ``a_neg`` on its dim 0),
+    the heads split (``xb``/``dt`` on dim 2, ``a_neg`` on 0; B and C whole),
+    or nothing split; the sequence is made whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    ins, outs = ([], [], [], [], []), ([], [])
+    for p in xb.placements:
+        d = p.dim % 4 if p.is_shard() else None
+        row = ((Shard(0), Shard(0), R, Shard(0), Shard(0)) if d == 0 else
+               (Shard(2), Shard(2), Shard(0), R, R) if d == 2 else (R,) * 5)
+        out = (Shard(0), Shard(0)) if d == 0 else (Shard(2), Shard(1)) if d == 2 else (R, R)
+        for lst, pl in zip(ins + outs, row + out):
+            lst.append(pl)
+    fn = local_map(ssd_chunked, outs, ins + (None,), xb.device_mesh)
+    return fn(xb, dt, a_neg, bmat, cmat, chunk)
 
 
 def ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk: int):
@@ -171,7 +198,7 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
 
     # Gated RMSNorm then output projection.
     y = _gated_norm(y, z, p["norm_scale"])
-    out = y @ p["out"].to(x.dtype)
+    out = whole_sequence_grad(y @ p["out"].to(x.dtype))
     if return_cache:
         # copies, so the cache does not hold the whole (B,L,.) projections alive
         cache = {"state": s_final,

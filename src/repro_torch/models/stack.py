@@ -33,6 +33,17 @@ only its input; ``"dots"`` keeps the outputs of the region's unbatched
 matrix products (``mm``, ``addmm``: the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest; ``"none"``
 keeps everything.
+
+``sharder`` is the reference's hook (``distributed.sharding.make_sharder``):
+``sharder(name, shape)`` gives the layout of an activation at a named
+constraint point, or None. The points are the reference's: the residual
+stream (``"acts"``) after the embedding and after each block's residual in
+the forward pass, once a layer in prefill; attention's q/k/v and context
+(``"acts_qkv"``, ``"acts_kv_repl"``) where the reference passes the hook
+(self-attention in the forward pass and the encoder); the MoE dispatch
+(``"moe_disp"``, ``"moe_xe"``); and the grouped decode scores
+(``"decode_scores5"``). On DTensor activations a constraint redistributes;
+on plain tensors it does nothing, so without a mesh nothing changes.
 """
 
 from __future__ import annotations
@@ -47,12 +58,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.module import (ParamSpec, Tree, count_params, fill_leaf, flatten,
-                                       port_names, spec, stack_specs)
+from repro_torch.models.module import (_STACKS, ParamSpec, Tree, count_params, fill_leaf,
+                                       flatten, port_names, spec, stack_specs)
 from repro_torch.models.switch import with_the_impls_in_force
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -75,6 +87,17 @@ def _params(sub, dtype: torch.dtype, device):
     return nn.ParameterDict({k: one(ps) for k, ps in sub.items()})
 
 
+def _whole(sharder, sub):
+    """A sub-block's parameters (or one parameter) made whole for compute
+    along the data-parallel axes, where the sharder says so."""
+    whole = getattr(sharder, "whole", None)
+    if whole is None:
+        return sub
+    if isinstance(sub, nn.ParameterDict):
+        return {k: whole(v) for k, v in sub.items()}
+    return whole(sub)
+
+
 def _add(aux, a):
     return a if aux is None else aux if a is None else aux + a
 
@@ -86,24 +109,49 @@ class _Layer(nn.Module):
     MoE); ``decode(x, cache, pos)`` takes and returns that entry;
     ``cache_spec`` gives the entry's {name: (shape, dtype)}."""
 
-    def __init__(self, cfg: ModelConfig, kind: tuple, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: tuple, dtype: torch.dtype, device,
+                 sharder=None):
         super().__init__()
-        self.cfg, self.kind = cfg, kind
+        self.cfg, self.kind, self.sharder = cfg, kind, sharder
         for name, sub in StackModel.layer_spec(cfg, kind).items():
             setattr(self, name, _params(sub, dtype, device))
 
-    def _mlp(self, x):
-        """The pre-norm MLP block on the residual stream: (x, aux or None)."""
+    def _w(self, name: str):
+        """The parameters ``name`` in their compute layout (``Sharder.whole``)."""
+        return _whole(self.sharder, getattr(self, name))
+
+    def _norm1(self, x):
+        return L.apply_norm(self._w("norm1"), x)
+
+    def _acts(self, x):
+        return constrain(self.sharder, "acts", x)
+
+    def _mlp(self, x, acts: bool = True):
+        """The pre-norm MLP block on the residual stream: (x, aux or None),
+        the new residual stream constrained to ``"acts"`` where ``acts``
+        (the forward pass; prefill constrains once at the layer's end, decode
+        and the encoder not at all, as the reference)."""
         mlp = self.kind[1]
         if mlp == "none":
             return x, None
-        h = L.apply_norm(self.norm2, x)
+        h = L.apply_norm(self._w("norm2"), x)
         if mlp == "dense":
-            return x + L.apply_mlp(self.mlp, h), None
-        y, aux = moe_lib.apply_moe(self.mlp, self.cfg, h)
-        if mlp == "moe_dense":
-            y = y + L.apply_mlp(self.mlp_dense, h)
-        return x + y, aux
+            y, aux = L.apply_mlp(self._w("mlp"), h), None
+        else:
+            y, aux = moe_lib.apply_moe(self._w("mlp"), self.cfg, h, shard=self.sharder)
+            if mlp == "moe_dense":
+                y = y + L.apply_mlp(self._w("mlp_dense"), h)
+        x = x + y
+        return (self._acts(x) if acts else x), aux
+
+    def _block(self, x, y, prefill: bool):
+        """The mixer's output ``y`` added to the residual stream, then the
+        MLP block, with the reference's ``"acts"`` constraints."""
+        x = x + y
+        if prefill:
+            x, aux = self._mlp(x, acts=False)
+            return self._acts(x), aux
+        return self._mlp(self._acts(x))
 
     def _kv_spec(self, batch: int, seq: int, dtype: torch.dtype, prefix: str = ""):
         return {prefix + k: (shp, dtype)
@@ -113,28 +161,28 @@ class _Layer(nn.Module):
 class AttnLayer(_Layer):
     """Pre-norm causal self-attention, then the layer's MLP."""
 
-    def forward(self, x, positions, memory=None):
-        y, (k, v) = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
-                                         positions)
-        x, aux = self._mlp(x + y)
+    def forward(self, x, positions, memory=None, prefill=False):
+        y, (k, v) = attn.apply_self_attn(self._w("mixer"), self.cfg, self._norm1(x),
+                                         positions, shard=None if prefill else self.sharder)
+        x, aux = self._block(x, y, prefill)
         return x, {"k": k, "v": v}, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
         return self._kv_spec(batch, seq, dtype)
 
     def decode(self, x, cache, pos):
-        y, cache = attn.decode_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
-                                         cache, pos)
-        return self._mlp(x + y)[0], cache
+        y, cache = attn.decode_self_attn(self._w("mixer"), self.cfg, self._norm1(x),
+                                         cache, pos, shard=self.sharder)
+        return self._mlp(x + y, acts=False)[0], cache
 
 
 class SSMLayer(_Layer):
     """Pre-norm Mamba2 SSD mixer, then the layer's MLP (none in Mamba2)."""
 
-    def forward(self, x, positions, memory=None):
-        y, cache = ssm_lib.apply_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+    def forward(self, x, positions, memory=None, prefill=False):
+        y, cache = ssm_lib.apply_ssm(self._w("mixer"), self.cfg, self._norm1(x),
                                      return_cache=True)
-        x, aux = self._mlp(x + y)
+        x, aux = self._block(x, y, prefill)
         return x, cache, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
@@ -143,8 +191,8 @@ class SSMLayer(_Layer):
                 for k, shp in ssm_lib.ssm_cache_shape(self.cfg, batch).items()}
 
     def decode(self, x, cache, pos):
-        y, cache = ssm_lib.decode_ssm(self.mixer, self.cfg, L.apply_norm(self.norm1, x), cache)
-        return self._mlp(x + y)[0], cache
+        y, cache = ssm_lib.decode_ssm(self._w("mixer"), self.cfg, self._norm1(x), cache)
+        return self._mlp(x + y, acts=False)[0], cache
 
 
 class CrossLayer(_Layer):
@@ -153,34 +201,35 @@ class CrossLayer(_Layer):
     holds the memory's K/V."""
 
     def _gated(self, y):
-        return y * torch.tanh(self.gate_attn).to(y.dtype)
+        return y * torch.tanh(self._w("gate_attn")).to(y.dtype)
 
-    def forward(self, x, positions, memory):
-        y, (k, v) = attn.apply_cross_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+    def forward(self, x, positions, memory, prefill=False):
+        y, (k, v) = attn.apply_cross_attn(self._w("mixer"), self.cfg, self._norm1(x),
                                           memory)
-        x, aux = self._mlp(x + self._gated(y))
+        x, aux = self._block(x, self._gated(y), prefill)
         return x, {"k": k, "v": v}, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
         return self._kv_spec(batch, self.cfg.vision_seq, dtype)
 
     def decode(self, x, cache, pos):
-        y, cache = attn.decode_cross_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+        y, cache = attn.decode_cross_attn(self._w("mixer"), self.cfg, self._norm1(x),
                                           cache)
-        return self._mlp(x + self._gated(y))[0], cache
+        return self._mlp(x + self._gated(y), acts=False)[0], cache
 
 
 class AttnCrossLayer(_Layer):
     """Pre-norm causal self-attention, then pre-norm (``norm_x``)
     cross-attention to the encoder's output, then the layer's MLP."""
 
-    def forward(self, x, positions, memory):
-        y, (k, v) = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
+    def forward(self, x, positions, memory, prefill=False):
+        y, (k, v) = attn.apply_self_attn(self._w("mixer"), self.cfg, self._norm1(x),
                                          positions)
         x = x + y
-        y, (xk, xv) = attn.apply_cross_attn(self.cross, self.cfg, L.apply_norm(self.norm_x, x),
+        hx = L.apply_norm(self._w("norm_x"), x)
+        y, (xk, xv) = attn.apply_cross_attn(self._w("cross"), self.cfg, hx,
                                             memory)
-        x, aux = self._mlp(x + y)
+        x, aux = self._block(x, y, prefill)
         return x, {"k": k, "v": v, "xk": xk, "xv": xv}, aux
 
     def cache_spec(self, batch: int, seq: int, dtype: torch.dtype):
@@ -188,12 +237,14 @@ class AttnCrossLayer(_Layer):
                 **self._kv_spec(batch, self.cfg.audio_seq, dtype, prefix="x")}
 
     def decode(self, x, cache, pos):
-        y, sc = attn.decode_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
-                                      {"k": cache["k"], "v": cache["v"]}, pos)
+        y, sc = attn.decode_self_attn(self._w("mixer"), self.cfg, self._norm1(x),
+                                      {"k": cache["k"], "v": cache["v"]}, pos,
+                                      shard=self.sharder)
         x = x + y
-        y, _ = attn.decode_cross_attn(self.cross, self.cfg, L.apply_norm(self.norm_x, x),
+        hx = L.apply_norm(self._w("norm_x"), x)
+        y, _ = attn.decode_cross_attn(self._w("cross"), self.cfg, hx,
                                       {"k": cache["xk"], "v": cache["xv"]})
-        return self._mlp(x + y)[0], {**sc, "xk": cache["xk"], "xv": cache["xv"]}
+        return self._mlp(x + y, acts=False)[0], {**sc, "xk": cache["xk"], "xv": cache["xv"]}
 
 
 class EncoderLayer(_Layer):
@@ -201,9 +252,9 @@ class EncoderLayer(_Layer):
     self-attention and the dense MLP; no cache."""
 
     def forward(self, x, positions):
-        y, _ = attn.apply_self_attn(self.mixer, self.cfg, L.apply_norm(self.norm1, x),
-                                    positions, causal=False)
-        return self._mlp(x + y)[0]
+        y, _ = attn.apply_self_attn(self._w("mixer"), self.cfg, self._norm1(x),
+                                    positions, causal=False, shard=self.sharder)
+        return self._mlp(x + y, acts=False)[0]
 
 
 _MIXERS = {"attn": AttnLayer, "ssm": SSMLayer, "cross": CrossLayer,
@@ -230,21 +281,23 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 class StackModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, sharder=None):
         super().__init__()
         if cfg.remat not in REMATS:
             raise ValueError(f"{cfg.name}: remat {cfg.remat!r} not in {REMATS}")
         self.cfg = cfg
+        self.sharder = sharder  # (name, shape) -> NamedSharding | None
         self.dtype = dtype_of(cfg)
         self.pattern = cfg.pattern()
         spec_tree = self.param_spec()
         self.embed = _params(spec_tree["embed"], self.dtype, device)
         kinds = [self.pattern[i % cfg.period] for i in range(cfg.num_layers)]
-        self.layers = nn.ModuleList(_MIXERS[kind[0]](cfg, kind, self.dtype, device)
+        self.layers = nn.ModuleList(_MIXERS[kind[0]](cfg, kind, self.dtype, device, sharder)
                                     for kind in kinds)
         self.final_norm = _params(spec_tree["final_norm"], self.dtype, device)
         if cfg.is_encoder_decoder:
-            self.encoder = nn.ModuleList(EncoderLayer(cfg, ENCODER_KIND, self.dtype, device)
+            self.encoder = nn.ModuleList(EncoderLayer(cfg, ENCODER_KIND, self.dtype, device,
+                                                      sharder)
                                          for _ in range(cfg.encoder_layers))
             self.enc_norm = _params(spec_tree["enc_norm"], self.dtype, device)
 
@@ -301,6 +354,25 @@ class StackModel(nn.Module):
     def param_spec(self) -> Tree:
         return self.param_spec_of(self.cfg)
 
+    def param_axes(self) -> Dict[str, tuple]:
+        """{parameter name: logical axes}, the reference's ``param_axes``
+        without the stacked layer dim (each layer is its own tensor here)."""
+        out = {}
+        for key, ps in flatten(self.param_spec()).items():
+            names = port_names(key, self.cfg)
+            stacked = key.split("/")[0] in _STACKS
+            out.update({name: ps.axes[1:] if stacked else ps.axes for name in names})
+        return out
+
+    def cache_axes(self) -> List[Dict[str, tuple]]:
+        """Per layer: {name: logical axes} of the decode cache, the
+        reference's ``cache_spec`` axes without the stacked layer dim."""
+        kv = ("batch", "cache_seq", "kv_heads", "head_dim")
+        ssm = {"state": ("batch", "heads", None, None), "conv_x": ("batch", None, "mlp"),
+               "conv_b": ("batch", None, None), "conv_c": ("batch", None, None)}
+        return [{k: ssm[k] if isinstance(layer, SSMLayer) else kv
+                 for k in layer.cache_spec(1, 1, self.dtype)} for layer in self.layers]
+
     def param_count(self, active_only: bool = False) -> int:
         spec_tree = self.param_spec()
         total = count_params(spec_tree)
@@ -334,6 +406,10 @@ class StackModel(nn.Module):
     # ------------------------------------------------------------------
     # Forward pass
     # ------------------------------------------------------------------
+    def _w(self, name: str):
+        """The parameters ``name`` in their compute layout (``Sharder.whole``)."""
+        return _whole(self.sharder, getattr(self, name))
+
     def _positions(self, s: int):
         return torch.arange(s, dtype=torch.int32, device=self.device)[None, :]
 
@@ -357,7 +433,7 @@ class StackModel(nn.Module):
         positions = self._positions(x.shape[1])
         for layer in self.encoder:
             x = self._remat(layer, x, positions)
-        return L.apply_norm(self.enc_norm, x)
+        return L.apply_norm(self._w("enc_norm"), x)
 
     def _memory_of(self, batch):
         if self.cfg.is_encoder_decoder:
@@ -372,15 +448,15 @@ class StackModel(nn.Module):
         fp32, 0 without MoE)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = L.embed_tokens(self.embed, tokens, self.dtype)
+        x = constrain(self.sharder, "acts", L.embed_tokens(self._w("embed"), tokens, self.dtype))
         positions = self._positions(tokens.shape[1])
         memory = self._memory_of(batch)
         aux = None
         for i in range(0, len(self.layers), cfg.period):
             x, a = self._remat(_run_period, self.layers[i:i + cfg.period], x, positions, memory)
             aux = _add(aux, a)
-        x = L.apply_norm(self.final_norm, x)
-        logits = L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size)
+        x = L.apply_norm(self._w("final_norm"), x)
+        logits = L.unembed(self._w("embed"), x, cfg.logits_softcap, cfg.vocab_size)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return logits, aux
@@ -410,24 +486,24 @@ class StackModel(nn.Module):
         (last_token_logits (B,1,V_padded), cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = L.embed_tokens(self.embed, tokens, self.dtype)
+        x = L.embed_tokens(self._w("embed"), tokens, self.dtype)
         positions = self._positions(tokens.shape[1])
         memory = self._memory_of(batch)
         cache = []
         for layer in self.layers:
-            x, entry, _ = layer(x, positions, memory)
+            x, entry, _ = layer(x, positions, memory, prefill=True)
             cache.append(entry)
-        x = L.apply_norm(self.final_norm, x[:, -1:])
-        return L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size), cache
+        x = L.apply_norm(self._w("final_norm"), x[:, -1:])
+        return L.unembed(self._w("embed"), x, cfg.logits_softcap, cfg.vocab_size), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
         """tokens (B,1) int; pos (B,) write positions. -> (logits, cache)."""
         cfg = self.cfg
-        x = L.embed_tokens(self.embed, tokens, self.dtype)
+        x = L.embed_tokens(self._w("embed"), tokens, self.dtype)
         new_cache = []
         for layer, c in zip(self.layers, cache):
             x, c = layer.decode(x, c, pos)
             new_cache.append(c)
-        x = L.apply_norm(self.final_norm, x)
-        return L.unembed(self.embed, x, cfg.logits_softcap, cfg.vocab_size), new_cache
+        x = L.apply_norm(self._w("final_norm"), x)
+        return L.unembed(self._w("embed"), x, cfg.logits_softcap, cfg.vocab_size), new_cache

@@ -10,11 +10,79 @@ at ``pos`` = prompt length, outside that cache, so generated tokens never
 enter a KV cache. Callers pad prompts by the number of steps plus one, as
 the reference's tests and example do. An SSM layer's cache (state and conv
 window) has no sequence axis, so every generated token does enter it.
+
+``make_prefill_step`` and ``make_decode_step`` are the units the dry run's
+``prefill_*`` / ``decode_*`` / ``long_*`` cells trace: the model's prefill,
+or one new token against a cache of the stated length, as functions of the
+parameters. ``param_shardings`` and ``cache_shardings`` give the reference's layouts of
+the parameters and the decode cache on a mesh: the KV cache sharded
+batch -> data and cache_seq -> model (the flash-decoding split).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.distributed import sharding as shd
+
+
+class _Call(nn.Module):
+    """``model.<method>(*args)`` as a module call, so that
+    ``functional_call`` can hand the model a tree of parameters."""
+
+    def __init__(self, model, method: str):
+        super().__init__()
+        self.model, self.method = model, method
+
+    def forward(self, *args):
+        return getattr(self.model, self.method)(*args)
+
+
+def _with_params(model, method: str):
+    call = _Call(model, method)
+
+    def step(params, *args):
+        with shd.replicate_plain_tensors(next(iter(params.values()))):
+            return functional_call(call, {f"model.{k}": v for k, v in params.items()}, args)
+    return step
+
+
+def make_prefill_step(model):
+    """``prefill_step(params, batch) -> (logits, cache)``: the model's prefill
+    on the given parameters (a tree of tensors or DTensors)."""
+    return _with_params(model, "prefill")
+
+
+def make_decode_step(model):
+    """``decode_step(params, cache, tokens, pos) -> (logits, cache)``."""
+    return _with_params(model, "decode_step")
+
+
+def param_shardings(model, mesh, rules: Optional[shd.ShardingRules] = None,
+                    fsdp_params: bool = False):
+    """{parameter name: NamedSharding} for serving on ``mesh``."""
+    rules = rules or shd.ShardingRules()
+    axes = model.param_axes()
+    shapes = dict(model.named_parameters())
+    if fsdp_params:  # giant models: params sharded over data axes too
+        from repro_torch.distributed import zero as zero_lib
+        axes = zero_lib.zero_axes(axes, shapes, mesh, rules)
+        rules = zero_lib.zero_rules(rules)
+    return shd.tree_shardings(mesh, axes, shapes, rules)
+
+
+def cache_shardings(model, mesh, batch: int, seq: int,
+                    rules: Optional[shd.ShardingRules] = None):
+    """(shardings, shapes) of the decode cache: per layer, {name:
+    NamedSharding} and {name: ``meta`` tensor}."""
+    rules = rules or shd.ShardingRules()
+    shapes = [{k: torch.empty(shp, dtype=dt, device="meta") for k, (shp, dt) in entry.items()}
+              for entry in model.cache_spec(batch, seq)]
+    return shd.tree_shardings(mesh, model.cache_axes(), shapes, rules), shapes
 
 
 class DecodeEngine:

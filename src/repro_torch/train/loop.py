@@ -11,11 +11,16 @@ The step is the port's functional ``make_train_step``, called eagerly: no
 ``jit``, no donated buffers and no ``torch.compile``; the train state and the
 batches live on the model's device. ``init_state`` draws from
 ``torch.Generator(device).manual_seed(seed)`` where the reference draws from
-``jax.random.key(seed)``. ``mesh`` and ``rules`` come with ROADMAP Queue A
-item 15; ``zero`` has no effect on one device, as in the reference without a
-mesh. The reference saves the last step a second time after the loop when it
-is a multiple of ``ckpt_every``; that identical write is skipped here (ROADMAP
-Queue C).
+``jax.random.key(seed)``.
+
+With a ``mesh`` (a ``DeviceMesh``, ``launch.mesh.make_host_mesh``) the state
+is laid out by ``state_shardings`` (ZeRO-1 with ``zero``, as in the
+reference) and the batches by ``batch_shardings``, as DTensors; the state is
+drawn whole on every rank from the same seed and each rank keeps its part,
+so it equals the unsharded state. ``zero`` has no effect without a mesh, as
+in the reference. The reference saves the last step a second time after the
+loop when it is a multiple of ``ckpt_every``; that identical write is skipped
+here (ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.data.pipeline import ShardedLoader, SyntheticLM
+from repro_torch.distributed import sharding as shd
 from repro_torch.ft.runtime import FTConfig, StepRunner
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import step as step_lib
@@ -51,25 +57,34 @@ class LoopConfig:
 
 class Trainer:
     def __init__(self, model, opt_cfg: opt_lib.OptConfig, loop_cfg: LoopConfig,
-                 mesh=None, rules=None, source=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("Trainer: a device mesh and sharding rules come with "
-                                      "ROADMAP Queue A item 15; pass mesh=None, rules=None")
+                 mesh=None, rules: Optional[shd.ShardingRules] = None, source=None):
         self.model = model
         self.device = model.device
         self.opt_cfg = opt_cfg
         self.cfg = loop_cfg
+        self.mesh = mesh
+        self.rules = rules or shd.ShardingRules()
         self.metrics_log: List[Dict[str, Any]] = []
         self.source = source or SyntheticLM(
             model.cfg.vocab_size, loop_cfg.batch, loop_cfg.seq, loop_cfg.seed)
         self.step_fn = step_lib.make_train_step(model, opt_cfg, accum=loop_cfg.accum)
+        if mesh is not None:
+            self.state_sh = step_lib.state_shardings(model, opt_cfg, mesh, self.rules,
+                                                     zero=loop_cfg.zero)
+            self.batch_sh = step_lib.batch_shardings(mesh, self.source.batch_at(0), self.rules)
+        else:
+            self.state_sh = None
+            self.batch_sh = None
         self.runner = StepRunner(self.step_fn, FTConfig(),
                                  predicted_step_s=loop_cfg.predicted_step_s)
 
     # -- state management -------------------------------------------------
     def init_state(self):
         gen = torch.Generator(self.device).manual_seed(self.cfg.seed)
-        return step_lib.init_state(self.model, self.opt_cfg, gen)
+        state = step_lib.init_state(self.model, self.opt_cfg, gen)
+        if self.state_sh is not None:
+            state = step_lib.distribute_state(state, self.state_sh)
+        return state
 
     def restore_or_init(self):
         d = self.cfg.ckpt_dir
@@ -77,7 +92,7 @@ class Trainer:
             step = ckpt_lib.latest_step(d)
             if step is not None:
                 like = step_lib.state_shapes(self.model, self.opt_cfg)
-                state = ckpt_lib.restore(d, step, like, device=self.device)
+                state = ckpt_lib.restore(d, step, like, self.state_sh, device=self.device)
                 return state, step
         return self.init_state(), 0
 
@@ -87,7 +102,7 @@ class Trainer:
         the final state is kept as ``self.state``."""
         steps = steps if steps is not None else self.cfg.steps
         state, start = self.restore_or_init()
-        loader = ShardedLoader(self.source, None, start_step=start, device=self.device)
+        loader = ShardedLoader(self.source, self.batch_sh, start_step=start, device=self.device)
         saved = None
         try:
             for i in range(start, steps):

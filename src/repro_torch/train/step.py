@@ -17,19 +17,28 @@ in a loop, the gradients averaged in fp32 (the reference scans them).
 
 ``state_from_jax`` carries a reference checkpoint's arrays into the port's
 state, so a run can continue from the JAX package's ``Trainer`` without
-replaying ``jax.random``. The sharding functions of the reference
-(``state_shardings``, ``batch_shardings``, ``metric_shardings``) come with
-ROADMAP Queue A item 15.
+replaying ``jax.random``.
+
+On a mesh, ``state_shardings`` / ``batch_shardings`` / ``metric_shardings``
+give the reference's layouts (parameters by the sharding rules, optimizer
+moments and master additionally over the data axes under ZeRO-1) and
+``distribute_state`` lays a state out as DTensors. The same step then runs
+on DTensor leaves: ``functional_call`` and ``autograd.grad`` take them, and
+DTensor redistributes wherever two operands' layouts differ (a ZeRO moment
+against its gradient), as GSPMD does. Tensors the model makes for itself
+(positions, masks) count as replicated there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import zero as zero_lib
 from repro_torch.models.api import use_impls
 from repro_torch.models.module import params_from_jax, unstack_layers
 from repro_torch.train import optimizer as opt_lib
@@ -64,29 +73,53 @@ def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):
                 dict(zip(params, grads)))
 
     def compute_grads(params, batch):
+        with shd.replicate_plain_tensors(next(iter(params.values()))):
+            return _compute_grads(params, batch)
+
+    def _compute_grads(params, batch):
         if accum <= 1:
             return grad_fn(params, batch)
-        micro = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
-                 for k, v in batch.items()}
         acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for k, p in params.items()}
         for i in range(accum):
-            loss, _, grads = grad_fn(params, {k: v[i] for k, v in micro.items()})
+            loss, _, grads = grad_fn(params, {k: _microbatch(v, i, accum)
+                                              for k, v in batch.items()})
             acc = {k: a + grads[k].float() / accum for k, a in acc.items()}
         return loss, {"loss": loss}, acc  # the last microbatch's loss, as the reference
 
     @torch.no_grad()
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        loss, metrics, grads = compute_grads(state["params"], batch)
-        new_params, new_opt, opt_metrics = opt_lib.apply_updates(
-            opt_cfg, state["params"], grads, state["opt"])
+        with shd.replicate_plain_tensors(state["step"]):
+            loss, metrics, grads = compute_grads(state["params"], batch)
+            new_params, new_opt, opt_metrics = opt_lib.apply_updates(
+                opt_cfg, state["params"], grads, state["opt"])
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
-        return new_state, metrics
+        return _laid_out_like(new_state, state), metrics
 
     train_step.compute_grads = compute_grads  # (params, batch) -> (loss, metrics, grads)
     return train_step
+
+
+def _microbatch(v, i: int, accum: int):
+    """Microbatch ``i`` of ``accum``: a contiguous block of rows, as the
+    reference splits the batch. On a mesh it is laid out as the whole batch
+    (DTensor moves the block's rows to the ranks that hold them)."""
+    n = v.shape[0] // accum
+    return _laid_out_like(v[i * n:(i + 1) * n], v)
+
+
+def _laid_out_like(new, old):
+    """Each DTensor leaf of ``new`` in its ``old`` leaf's layout: the state
+    keeps its shardings from step to step (a moment left partial over the
+    data axis is reduce-scattered into its ZeRO shard)."""
+    if isinstance(new, dict):
+        return {k: _laid_out_like(v, old[k]) for k, v in new.items()}
+    pls = getattr(old, "placements", None)
+    if pls is None or tuple(new.placements) == tuple(pls):
+        return new
+    return new.redistribute(new.device_mesh, pls)
 
 
 def _params(model) -> Dict[str, torch.Tensor]:
@@ -138,3 +171,68 @@ def state_from_jax(cfg, arrays: Dict[str, torch.Tensor]):
            "master": carry("master") if groups["master"] else {},
            "count": arrays["opt|count"].to(torch.int32)}
     return {"params": params, "opt": opt, "step": arrays["step"].to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Shardings on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _has_master(model, opt_cfg) -> bool:
+    return opt_cfg.keep_master and any(
+        p.dtype != torch.float32 for p in model.parameters())
+
+
+def state_shardings(model, opt_cfg: opt_lib.OptConfig, mesh,
+                    rules: Optional[shd.ShardingRules] = None,
+                    zero: bool = True, scheme: str = "sp",
+                    fsdp_params: bool = False):
+    """The train state's layout on ``mesh``: a tree of ``NamedSharding``
+    parallel to ``init_state``'s."""
+    rules = shd.scheme_rules(scheme, rules)
+    axes = model.param_axes()
+    shapes = _params(model)
+    if scheme == "dp":
+        axes = shd.fsdp_axes(axes, shapes, mesh)
+    if fsdp_params:  # giant models: params also sharded over (pod, data)
+        axes = zero_lib.zero_axes(axes, shapes, mesh, rules)
+        rules = zero_lib.zero_rules(rules)
+    p_sh = shd.tree_shardings(mesh, axes, shapes, rules)
+    if zero:
+        zrules = zero_lib.zero_rules(rules)
+        zaxes = zero_lib.zero_axes(axes, shapes, mesh, rules)
+        z_sh = shd.tree_shardings(mesh, zaxes, shapes, zrules)
+    else:
+        z_sh = p_sh
+    repl = shd.replicated(mesh)
+    master = dict(z_sh) if _has_master(model, opt_cfg) else {}
+    return {
+        "params": p_sh,
+        "opt": {"m": z_sh, "v": dict(z_sh), "count": repl, "master": master},
+        "step": repl,
+    }
+
+
+def batch_shardings(mesh, batch_shapes, rules: Optional[shd.ShardingRules] = None):
+    """Each batch leaf sharded on its leading (batch) dim."""
+    rules = rules or shd.ShardingRules()
+
+    def leaf(x):
+        shape = tuple(x.shape)
+        axes = ("batch",) + (None,) * (len(shape) - 1)
+        return shd.NamedSharding(mesh, shd.resolve_spec(axes, shape, mesh, rules))
+
+    return {k: leaf(v) for k, v in batch_shapes.items()}
+
+
+def metric_shardings(mesh, metrics_shape):
+    repl = shd.replicated(mesh)
+    return {k: repl for k in metrics_shape}
+
+
+def distribute_state(state, shardings):
+    """``state`` (whole tensors, alike on every rank) as DTensors laid out by
+    ``shardings`` (``state_shardings``); each rank keeps a view of its part."""
+    if isinstance(state, dict):
+        return {k: distribute_state(v, shardings[k]) for k, v in state.items()}
+    return shd.distribute(state, shardings)

@@ -6,7 +6,8 @@
   port through ``_torch_parity.port_suite``.
 - Checkpoints: the cases of ``tests/test_ckpt_ft.py`` rewritten for torch
   (that file imports JAX itself, so it cannot be bound; its elastic-
-  resharding case waits for ROADMAP Queue A item 15); bf16 and fp32 leaves
+  resharding case runs on a four-process world in
+  ``tests/test_torch_distributed_step.py``); bf16 and fp32 leaves
   round-trip bit for bit; the files' layout is the reference's; a bf16
   checkpoint the reference wrote restores in the port bit for bit, while the
   reference's own ``restore`` raises on it.
@@ -21,6 +22,11 @@
 - The launcher with ``--device cpu``: ``--predict`` prints the estimate and
   hands its time to the straggler detector; a predicted OOM returns 2
   before anything is built.
+- On a one-rank mesh (``one_rank_world``: a gloo group of this process
+  alone, in memory, destroyed after the test): the loader's DTensor
+  batches, a restore onto the mesh, the Trainer's losses equal to the
+  unsharded Trainer's bit for bit, and the launcher's ``--data 2`` clamped
+  to (1, 1).
 """
 
 import dataclasses
@@ -34,6 +40,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from torch.distributed.tensor import Replicate  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import port_suite, torch_cfg  # noqa: E402
@@ -44,6 +51,7 @@ from repro.data import pipeline as jdata  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.data import pipeline as tdata  # noqa: E402
+from repro_torch.distributed.sharding import NamedSharding, P  # noqa: E402
 from repro_torch.ft.runtime import (FailureInjector, FTConfig, StepFailure,  # noqa: E402
                                     StepRunner)
 from repro_torch.models import build_model  # noqa: E402
@@ -53,6 +61,21 @@ from repro_torch.train.loop import LoopConfig, Trainer  # noqa: E402
 
 RESUME_RTOL = 1e-4
 GNORM_RTOL = 1e-3
+
+@pytest.fixture
+def one_rank_world():
+    """A (1, 1) mesh over a gloo group of this process alone (an in-memory
+    store, no port), destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    assert not dist.is_initialized()
+    try:
+        yield lambda: make_host_mesh(1, 1, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
 
 SCHED = port_suite("test_predictor_sched")
 test_synthetic_data_deterministic_in_step = SCHED.test_synthetic_data_deterministic_in_step
@@ -83,7 +106,7 @@ def test_memmap_batches_equal_the_reference(tmp_path):
             assert all(a[k].tobytes() == b[k].tobytes() for k in ("tokens", "labels"))
 
 
-def test_loader_gives_int32_tensors_in_order_and_close_stops_it():
+def test_loader_gives_int32_tensors_in_order_and_close_stops_it(one_rank_world):
     src = tdata.SyntheticLM(1000, 2, 8, seed=1)
     loader = tdata.ShardedLoader(src, None, start_step=3, prefetch=2, device="cpu")
     for step in (3, 4, 5):
@@ -93,8 +116,14 @@ def test_loader_gives_int32_tensors_in_order_and_close_stops_it():
         assert loader.step == step + 1
     loader.close()
     assert not loader._thread.is_alive()
-    with pytest.raises(NotImplementedError):
-        tdata.ShardedLoader(src, {"tokens": None})
+    mesh = one_rank_world()
+    sharded = tdata.ShardedLoader(src, tstep.batch_shardings(mesh, src.batch_at(0)),
+                                  start_step=3)
+    b = next(sharded)
+    sharded.close()
+    assert b["tokens"].placements == (Replicate(), Replicate())
+    assert b["tokens"].dtype == torch.int32 and b["tokens"].device.type == "cpu"
+    assert np.array_equal(b["tokens"].full_tensor().numpy(), src.batch_at(3)["tokens"])
 
 
 # -- checkpoints ---------------------------------------------------------------
@@ -149,14 +178,17 @@ def test_restore_missing_key_raises(tmp_path):
         ckpt.restore(d, 1, {"a": torch.zeros(2), "b": torch.zeros(3)})
 
 
-def test_restore_casts_dtype(tmp_path):
+def test_restore_casts_dtype(tmp_path, one_rank_world):
     d = str(tmp_path / "ck")
     ckpt.save(d, 1, {"w": torch.ones((2, 2), dtype=torch.float32)})
     out = ckpt.restore(d, 1, {"w": torch.empty((2, 2), dtype=torch.bfloat16, device="meta")},
                        device="cpu")
     assert out["w"].dtype == torch.bfloat16 and bool((out["w"] == 1).all())
-    with pytest.raises(NotImplementedError):
-        ckpt.restore(d, 1, {"w": torch.zeros(2, 2)}, shardings={"w": None})
+    mesh = one_rank_world()
+    out = ckpt.restore(d, 1, {"w": torch.empty((2, 2), dtype=torch.bfloat16, device="meta")},
+                       shardings={"w": NamedSharding(mesh, P())})
+    assert out["w"].placements == (Replicate(), Replicate())
+    assert out["w"].dtype == torch.bfloat16 and bool((out["w"].full_tensor() == 1).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -289,7 +321,8 @@ def test_trainer_resumes_after_simulated_crash(tmp_path):
         [(r["loss"], r["grad_norm"]) for r in whole[4:]]
 
 
-def test_trainer_retries_an_injected_failure_and_writes_the_last_step_once(tmp_path, monkeypatch):
+def test_trainer_retries_an_injected_failure_and_writes_the_last_step_once(tmp_path, monkeypatch,
+                                                                           one_rank_world):
     """A failed step call is retried from the same state (the losses equal a
     run without the failure), and a last step that is a multiple of
     ``ckpt_every`` is written once, not a second time after the loop."""
@@ -312,8 +345,12 @@ def test_trainer_retries_an_injected_failure_and_writes_the_last_step_once(tmp_p
     restored = ckpt._flatten(ckpt.restore(str(tmp_path / "b"), 4, t.state))
     for k, v in ckpt._flatten(t.state).items():
         assert restored[k].dtype == v.dtype and np.array_equal(_bits(restored[k]), _bits(v)), k
-    with pytest.raises(NotImplementedError):
-        Trainer(model, topt.OptConfig(), lc, mesh=object())
+    # on a one-rank mesh: DTensor state and batches, the same losses bit for bit
+    sharded = Trainer(model, topt.OptConfig(), dataclasses.replace(lc, ckpt_dir=None),
+                      mesh=one_rank_world())
+    assert [r["loss"] for r in sharded.run()] == [r["loss"] for r in clean]
+    assert all(v.placements == (Replicate(), Replicate())
+               for v in sharded.state["params"].values())
 
 
 def test_port_trainer_resumes_from_the_jax_trainers_checkpoint(tmp_path):
@@ -436,13 +473,17 @@ def test_launcher_refuses_a_predicted_oom_before_building(tmp_path, capsys, trai
     assert "[abacus] REFUSED: predicted OOM" in captured.err
 
 
-def test_launcher_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+def test_launcher_needs_the_card_unless_asked_for_the_cpu(monkeypatch, capsys, one_rank_world):
     from repro_torch.launch.train import main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--arch", "qwen2-0.5b", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["--arch", "qwen2-0.5b", "--data", "2", "--device", "cpu"])
+    # a data axis of 2 in a lone process: the mesh clamps to the one-rank world
+    assert main(["--arch", "qwen2-0.5b", "--data", "2", "--steps", "2", "--batch", "2",
+                 "--seq", "16", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[mesh] {'data': 1, 'model': 1} over 1 rank(s) on cpu" in out
+    assert "final loss: " in out
 
 
 def test_loader_thread_does_not_outlive_the_trainer(tmp_path):
