@@ -63,13 +63,19 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    ``ZOO_CHECK_FLOOR`` and ``ZOO_FP32_ALLOWANCE``), with a per-layer check
    of ``ZOO_LAYER_NETS`` under each cuDNN setting (``zoo_layer_check``), and
    a zoo step's NSM and FLOPs traced on card tensors against the CPU trace;
-   then the corpus, ``profile_zoo`` on the card over the reference's
-   default grid (``benchmarks/collect.py::zoo_grid``, 76 points),
-   ``random_cnn`` seeds 0-11, phase 10's four ``profile_lm`` records and
-   the LMs of collect.py's lm_grid and random_grid (its eight
-   ``LM_GRID_ARCHS`` reduced, MoE, hybrid, VLM and audio among them, and
-   ``random_lm_config`` seeds 0-11, 7 and 11 MoE), each printed as a JSON
-   line: 112 records; then DNNAbacus fitted on those records as
+   then the corpus: the reference's default grid
+   (``benchmarks/collect.py::zoo_grid``, 76 points), ``random_cnn`` seeds
+   0-11, phase 10's four ``profile_lm`` records and the LMs of collect.py's
+   lm_grid and random_grid (its eight ``LM_GRID_ARCHS`` reduced, MoE,
+   hybrid, VLM and audio among them, and ``random_lm_config`` seeds 0-11,
+   7 and 11 MoE), each printed as a JSON line: 112 records. Each record is
+   what ``profile_zoo`` / ``profile_lm`` give, made in two parts: its
+   fake-tensor trace (FLOPs, NSM) by ``core.profiler.TraceAhead``'s
+   spawned worker processes, started after phase 1 so that they trace
+   beside phases 2-10 and all end before phase 11's card work, and its
+   timed steps on the card (``measure_point``) in phase 11; the corpus's
+   wall time is printed beside what the same records cost serially. Then
+   DNNAbacus fitted on those records as
    ``benchmarks/bench_mre.py`` (70/30 split, with the shape-inference and
    MLP baselines) and ``bench_unseen.py`` (zero-shot on the five unseen
    nets, NSM and graph embedding) do, its MREs printed as one JSON line,
@@ -985,15 +991,22 @@ def step_launches(cfg) -> dict:
             "rmsnorm_bwd": norms}
 
 
-def profile_record(torch, tprof, cfg, b: int, s: int, counters, steps: int = PROFILE_STEPS):
+def profile_record(torch, tprof, cfg, b: int, s: int, counters, steps: int = PROFILE_STEPS,
+                   traced=None):
     """``profile_lm`` on the card at (b, s), checked and printed as one JSON
     line, with the kernels' launches counted over exactly that call: one
     warm-up and ``steps`` timed steps, each the launches of one step (the
-    trace for FLOPs and the NSM runs every kernel plain)."""
+    trace for FLOPs and the NSM runs every kernel plain). With ``traced``,
+    the point's trace from the corpus's workers, only the card's part runs
+    here (``measure_point``)."""
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     reset_counts(counters)
-    rec = tprof.profile_lm(cfg, b, s, steps=steps, device=DEVICE)
+    if traced is None:
+        rec = tprof.profile_lm(cfg, b, s, steps=steps, device=DEVICE)
+    else:
+        rec = tprof.measure_point(tprof.CorpusPoint("lm", cfg, b, s), traced, steps=steps,
+                                  device=DEVICE)
     torch.cuda.synchronize()
     launches = read_counts(counters)
     check(rec.time_s > 0 and rec.mem_bytes > 0 and rec.flops > 0 and rec.nsm_edges,
@@ -1302,29 +1315,43 @@ def check_record(rec) -> None:
           f"an empty NSM")
 
 
-def corpus_phase(torch, tzoo, tprof, trand, counters):
-    """The corpus on the card: the reference's default zoo grid and the random
-    CNNs, each a ``profile_zoo`` call (a trace, a warm-up step and the timed
-    steps), with the kernels' launches counted around all of them."""
+def corpus_points(tprof, trand, get_config, reduced_config) -> list:
+    """Phase 11's corpus as ``CorpusPoint``s, in its records' order: the
+    reference's default zoo grid, the random CNNs (collect.py's random_grid:
+    batch 8 + 8 * (seed % 3), 32 px), then the LMs at ``LM_POINT``."""
+    point = tprof.CorpusPoint
+    cfgs = ([reduced_config(get_config(a)) for a in LM_GRID_ARCHS]
+            + [trand.random_lm_config(seed) for seed in RANDOM_LM_SEEDS])
+    return ([point("zoo", c["name"], c["batch"], c["image"], c.get("optimizer", "sgd"))
+             for c in ZOO_GRID]
+            + [point("rand_cnn", seed, 8 + 8 * (seed % 3), 32) for seed in RANDOM_CNN_SEEDS]
+            + [point("lm", cfg, *LM_POINT) for cfg in cfgs])
+
+
+def trace_workers() -> int:
+    """The corpus's trace workers: half the host's cores, the other half
+    left to this process, which drives the card meanwhile."""
+    return max(1, (os.cpu_count() or 2) // 2)
+
+
+def corpus_phase(torch, tzoo, tprof, points, traced, counters):
+    """The corpus's CNNs on the card: the reference's default zoo grid and the
+    random CNNs, each record the card's part of a ``profile_zoo`` call (a
+    warm-up step and the timed steps, ``measure_point``) built with its
+    trace from the workers, with the kernels' launches counted around all
+    of them. Returns the records and the card's seconds for them."""
+    cnn = [(p, t) for p, t in zip(points, traced) if p.kind != "lm"]
     print(f"== phase 11: the corpus, {len(ZOO_GRID)} zoo points and {len(RANDOM_CNN_SEEDS)} "
           f"random CNNs profiled on the card")
-    records = []
+    records, card_s = [], 0.0
     torch.cuda.synchronize()
     reset_counts(counters)
-    for combo in ZOO_GRID:
+    for p, t in cnn:
         t0 = time.perf_counter()
-        rec = tprof.profile_zoo(combo["name"], batch=combo["batch"], image=combo["image"],
-                                optimizer=combo.get("optimizer", "sgd"),
-                                steps=ZOO_PROFILE_STEPS, device=DEVICE)
+        rec = tprof.measure_point(p, t, steps=ZOO_PROFILE_STEPS, device=DEVICE)
         check_record(rec)
         records.append(rec)
-        print(record_line(rec, time.perf_counter() - t0))
-    for seed in RANDOM_CNN_SEEDS:
-        t0 = time.perf_counter()
-        rec = tprof.profile_zoo_model(trand.random_cnn(seed), batch=8 + 8 * (seed % 3), image=32,
-                                      steps=ZOO_PROFILE_STEPS, family="rand_cnn", device=DEVICE)
-        check_record(rec)
-        records.append(rec)
+        card_s += time.perf_counter() - t0
         print(record_line(rec, time.perf_counter() - t0))
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -1333,23 +1360,28 @@ def corpus_phase(torch, tzoo, tprof, trand, counters):
     print(f"kernel launches over the corpus's CNN steps: {launches}")
     check(set(tzoo.ZOO) <= {r.model_name for r in records}, "a zoo net has no record")
     torch.cuda.empty_cache()
-    return records
+    return records, card_s
 
 
-def lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters):
+def lm_corpus_phase(torch, tprof, points, traced, counters):
     """The corpus's LMs on the card, as collect.py's lm_grid and random_grid
     profile them: each ported arch of ``LM_ARCHS`` reduced, and the dense
-    and SSM draws of ``random_lm_config``, fp32 at ``LM_POINT``, each a
-    ``profile_lm`` call whose RMSNorm launches are counted."""
+    and SSM draws of ``random_lm_config``, fp32 at ``LM_POINT``, each the
+    card's part of a ``profile_lm`` call built with its trace from the
+    workers, its RMSNorm launches counted. Returns the records and the
+    card's seconds for them."""
     print(f"== phase 11: the corpus's LMs, {len(LM_GRID_ARCHS)} reduced archs and "
           f"{len(RANDOM_LM_SEEDS)} random LMs profiled on the card at {LM_POINT}")
-    cfgs = ([reduced_config(get_config(a)) for a in LM_GRID_ARCHS]
-            + [trand.random_lm_config(seed) for seed in RANDOM_LM_SEEDS])
-    records = [profile_record(torch, tprof, cfg, *LM_POINT, counters, steps=LM_PROFILE_STEPS)[0]
-               for cfg in cfgs]
+    records, card_s = [], 0.0
+    for p, t in zip(points, traced):
+        if p.kind == "lm":
+            t0 = time.perf_counter()
+            records.append(profile_record(torch, tprof, p.model, p.batch, p.size, counters,
+                                          steps=LM_PROFILE_STEPS, traced=t)[0])
+            card_s += time.perf_counter() - t0
     for rec in records:
         check_record(rec)
-    return records
+    return records, card_s
 
 
 def experiment_phase(np, records, tzoo, meanwhile):
@@ -2406,6 +2438,7 @@ def profile_device(torch, label: str, fn, wall_ms: float, reps: int = 1):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -2448,6 +2481,10 @@ def main() -> int:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+    points = corpus_points(tprof, trand, get_config, reduced_config)
+    ahead = tprof.TraceAhead(points, DEVICE, trace_workers())
+    print(f"phase 11's corpus: {len(points)} records traced ahead in {ahead.workers} spawned "
+          f"worker processes ({os.cpu_count()} cores), beside phases 2-10")
     # each kernel's launch counter: its wrapper module and the counter's name
     counters = {"flash_attention": (fa, "launches"), "ssd_scan": (ssd, "launches"),
                 "rmsnorm_fwd": (rn, "fwd_launches"), "rmsnorm_bwd": (rn, "bwd_launches")}
@@ -2476,11 +2513,22 @@ def main() -> int:
                                                  topt, counters)
 
     t11 = time.perf_counter()
+    traced = ahead.results()  # every worker ends here, before phase 11's card work
+    waited = time.perf_counter() - t11
+    trace_s = sum(t["trace_s"] for t in traced)
+    print(f"phase 11: the corpus's {len(traced)} traces took {trace_s:.1f} s in "
+          f"{ahead.workers} workers, {waited:.1f} s of it waited for here")
     zoo_check_phase(torch, tzoo, tprof)
     t_corpus = time.perf_counter()
-    records = (corpus_phase(torch, tzoo, tprof, trand, counters) + lm_records
-               + lm_corpus_phase(torch, tprof, trand, get_config, reduced_config, counters))
+    cnn_records, cnn_s = corpus_phase(torch, tzoo, tprof, points, traced, counters)
+    lm_corpus, lm_s = lm_corpus_phase(torch, tprof, points, traced, counters)
+    records = cnn_records + lm_records + lm_corpus
     t_fit = time.perf_counter()
+    corpus_wall = waited + t_fit - t_corpus
+    print(f"phase 11 corpus wall time {corpus_wall:.1f} s ({waited:.1f} s waiting for the "
+          f"trace workers, then the card's part of its {len(traced)} records "
+          f"{cnn_s + lm_s:.1f} s); serially the same records cost {trace_s + cnn_s + lm_s:.1f} "
+          f"s (traces {trace_s:.1f} s, the card's part {cnn_s + lm_s:.1f} s)")
     new_archs = {}
 
     chatglm = get_config("chatglm3-6b")
@@ -2503,7 +2551,7 @@ def main() -> int:
     service_abacus, service_records = experiment_phase(np, records, tzoo, meanwhile)
     t_end = time.perf_counter()
     print(f"phase 11 wall time {t_end - t11:.1f} s ({len(records)} records): checks "
-          f"{t_corpus - t11:.1f} s, corpus {t_fit - t_corpus:.1f} s, fits with phase 13, "
+          f"{t_corpus - t11 - waited:.1f} s, corpus {corpus_wall:.1f} s, fits with phase 13, "
           f"phase 12's {chatglm.name}, phase 10's NSM check and phase 15's in-process half "
           f"beside them {t_end - t_fit:.1f} s")
 
@@ -2531,6 +2579,7 @@ def main() -> int:
     ssd_source = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     rms_source = "src/repro_torch/kernels/csrc/rmsnorm.cu"
     moonshot, jamba = "moonshot-v1-16b-a3b", "jamba-v0.1-52b"
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda", source=flash_source,
              replaces="src/repro/kernels/flash_attention.py:32",

@@ -26,12 +26,22 @@ the card: a measurement on the CPU raises rather than return a number that
 is not the card's. As in the reference, the timed steps run on an all-zero
 state and batch. ``profile_zoo`` profiles one of the 29 zoo CNNs
 (``repro_torch.core.zoo``) this way, ``profile_lm`` one LM.
+
+A corpus can make its records in two parts: ``TraceAhead`` runs the
+traces (``trace_point``) in spawned worker processes while the card does
+other work, and ``measure_point`` later runs only the timed steps on the
+card; a ``CorpusPoint``'s record is then the one ``profile_zoo`` /
+``profile_zoo_model`` / ``profile_lm`` give.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import multiprocessing
 import statistics
-from typing import Dict
+import time
+from concurrent.futures import ProcessPoolExecutor
+from typing import Any, Dict
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -208,16 +218,23 @@ def zoo_record(model: ZooModel, batch: int, image: int, *, flops, nsm_edges,
         time_s=time_s, mem_bytes=mem_bytes, platform=platform)
 
 
+def zoo_step_args(model: ZooModel, batch: int, image: int, optimizer: str, lr: float):
+    """``(step, args)``: the zoo step and its ``meta`` inputs (parameters,
+    optimizer state, an NCHW batch and its labels)."""
+    step, init_opt = zoo_train_step(model, optimizer, lr)
+    params = model.param_shapes()
+    x = torch.empty((batch, model.cin, image, image), device="meta")
+    y = torch.empty((batch,), dtype=torch.int64, device="meta")
+    return step, (params, init_opt(params), x, y)
+
+
 def profile_zoo_model(model: ZooModel, batch: int = 16, image: int = 32, lr: float = 0.1,
                       optimizer: str = "sgd", epoch: int = 1, steps: int = 3,
                       family: str = "cnn", platform: int = PLATFORM_TORCH_CUDA,
                       device="cuda") -> ProfileRecord:
     """Profile one train step of a built zoo (or random) CNN on the card."""
-    step, init_opt = zoo_train_step(model, optimizer, lr)
-    params = model.param_shapes()
-    x = torch.empty((batch, model.cin, image, image), device="meta")
-    y = torch.empty((batch,), dtype=torch.int64, device="meta")
-    meas = profile_step(step, (params, init_opt(params), x, y), steps=steps, device=device)
+    step, args = zoo_step_args(model, batch, image, optimizer, lr)
+    meas = profile_step(step, args, steps=steps, device=device)
     return zoo_record(model, batch, image, flops=meas["flops"], nsm_edges=meas["nsm_edges"],
                       lr=lr, optimizer=optimizer, epoch=epoch, time_s=meas["time_s"],
                       mem_bytes=meas["mem_bytes"], family=family, platform=platform)
@@ -297,3 +314,94 @@ def profile_lm(cfg, batch: int = 2, seq: int = 64, lr: float = 1e-3,
                      nsm_edges=meas["nsm_edges"], lr=lr, optimizer=optimizer,
                      time_s=meas["time_s"], mem_bytes=meas["mem_bytes"],
                      platform=platform)
+
+
+# ---------------------------------------------------------------------------
+# A corpus traced ahead of its timing
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CorpusPoint:
+    """One record of a corpus, as ``profile_zoo`` (``kind`` "zoo", ``model``
+    a zoo net's name), ``profile_zoo_model`` of ``random_cnn`` (``"rand_cnn"``,
+    its seed) or ``profile_lm`` (``"lm"``, a ``ModelConfig``) profile it at
+    (``batch``, ``size``: the image's side or the sequence's length) with
+    their default learning rates."""
+
+    kind: str
+    model: Any
+    batch: int
+    size: int
+    optimizer: str = "sgd"
+
+
+def point_step(point: CorpusPoint):
+    """``(step, args, record)`` of ``point``: its step, the step's ``meta``
+    inputs, and ``record(flops, nsm_edges, time_s, mem_bytes)`` building its
+    ``ProfileRecord`` as the in-process profile does."""
+    if point.kind == "lm":
+        model, step, state, batch = lm_trace(point.model, point.batch, point.size)
+
+        def record(**meas):
+            return lm_record(point.model, model, point.batch, point.size, **meas)
+        return step, (state, batch), record
+    if point.kind == "zoo":
+        model, family = build_zoo_model(point.model, 3, point.size), "cnn"
+    elif point.kind == "rand_cnn":
+        from repro_torch.core.randomgen import random_cnn
+        model, family = random_cnn(point.model), "rand_cnn"
+    else:
+        raise ValueError(f"corpus point kind {point.kind!r}")
+    step, args = zoo_step_args(model, point.batch, point.size, point.optimizer, 0.1)
+
+    def record(**meas):
+        return zoo_record(model, point.batch, point.size, optimizer=point.optimizer,
+                          family=family, **meas)
+    return step, args, record
+
+
+def trace_point(point: CorpusPoint, device="cuda") -> Dict:
+    """The host's part of ``point``'s record: its step's FLOPs and NSM edges
+    traced on fake tensors of ``device`` (no kernel runs), and the seconds
+    the trace took (``trace_s``)."""
+    t0 = time.perf_counter()
+    step, args, _ = point_step(point)
+    return {**trace_step(step, args, device), "trace_s": time.perf_counter() - t0}
+
+
+def measure_point(point: CorpusPoint, traced: Dict, steps: int = 3,
+                  device="cuda") -> ProfileRecord:
+    """The card's part of ``point``'s record, ``measure_step`` on zeros, built
+    with the FLOPs and NSM edges of ``traced`` (``trace_point``) into the
+    record the in-process profile gives."""
+    step, args, record = point_step(point)
+    meas = measure_step(step, args, steps, device)
+    return record(flops=traced["flops"], nsm_edges=traced["nsm_edges"],
+                  time_s=meas["time_s"], mem_bytes=meas["mem_bytes"])
+
+
+def _trace_worker_start() -> None:
+    torch.set_num_threads(1)  # the traces are host-bound, one a worker
+
+
+class TraceAhead:
+    """``trace_point`` of every one of ``points`` on fake tensors of
+    ``device``, in ``workers`` spawned processes started here, while the
+    caller does other work; ``results()`` waits for them, ends the
+    processes and returns the traces in the points' order. A worker that
+    fakes CUDA tensors opens a context on the card (fake tensors of a
+    device need one) and launches nothing there."""
+
+    def __init__(self, points, device="cuda", workers: int = 1):
+        ctx = multiprocessing.get_context("spawn")
+        self.workers = workers
+        self._pool = ProcessPoolExecutor(workers, mp_context=ctx,
+                                         initializer=_trace_worker_start)
+        self._futures = [self._pool.submit(trace_point, p, device) for p in points]
+
+    def results(self):
+        try:
+            return [f.result() for f in self._futures]
+        finally:
+            self._pool.shutdown(wait=True)

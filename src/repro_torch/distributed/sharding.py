@@ -244,6 +244,26 @@ def fsdp_axes(axes_tree, shape_tree, mesh):
     return tree_map_axes(leaf, axes_tree, shape_tree)
 
 
+def even_axes(mesh_axes: Tuple[str, ...], dim: int, mesh) -> Tuple[str, ...]:
+    """The leading ``mesh_axes`` (those ``mesh`` has) over which ``dim`` still
+    splits evenly. The reference's spec leaves a batch that does not split
+    over all of its axes whole (a microbatch of 8 rows on a (4, 4) mesh
+    under "dp"), and GSPMD then partitions around the constraint as it sees
+    fit; DTensor would hold it whole and repeat its whole work on every
+    rank, so the port splits it as far as it goes evenly (over the 4 ranks
+    of the first mesh dim)."""
+    sizes = _axis_sizes(mesh)
+    out, n = [], 1
+    for a in mesh_axes:
+        if a not in sizes:
+            continue
+        if dim % (n * sizes[a]):
+            break
+        out.append(a)
+        n *= sizes[a]
+    return tuple(out)
+
+
 class Sharder:
     """The ``sharder(name, shape)`` hook consumed by StackModel: the layout of
     the activation at a named constraint point, or None.
@@ -261,11 +281,23 @@ class Sharder:
         self.mesh, self.rules, self.names = mesh, rules, names
         self.dp_axes = set(rules.rules.get("batch", ()))
 
-    def __call__(self, name: str, shape: Tuple[int, ...]):
+    def __call__(self, name: str, shape: Tuple[int, ...], rules=None):
         axes = _ACT_AXES.get(name)
         if name not in self.names or axes is None or len(axes) != len(shape):
             return None
-        return NamedSharding(self.mesh, resolve_spec(axes, shape, self.mesh, self.rules))
+        return NamedSharding(self.mesh, resolve_spec(axes, shape, self.mesh, rules or self.rules))
+
+    def layout(self, name: str, shape: Tuple[int, ...]):
+        """The layout DTensor is given at a constraint point: the reference's
+        spec (``__call__``), but with a batch that does not split evenly
+        over all of its mesh axes split over those of them it does
+        (``even_axes``)."""
+        axes = _ACT_AXES.get(name) or ()
+        if "batch" not in axes or len(axes) != len(shape):
+            return self(name, shape)
+        batch = even_axes(self.rules.rules.get("batch", ()), shape[axes.index("batch")],
+                          self.mesh)
+        return self(name, shape, self.rules.replace(batch=batch))
 
     def whole(self, p):
         from torch.distributed.tensor import DTensor, Replicate
@@ -392,6 +424,57 @@ def whole_sequence_grad(y):
     return _WholeSequenceGrad.apply(y)
 
 
+def _ranks_split_over(t, pls) -> int:
+    return math.prod(t.device_mesh.size(i) for i, p in enumerate(pls) if p.is_shard())
+
+
+class _GradInLayout(torch.autograd.Function):
+    """Identity forward; see ``grad_in_layout``."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = tuple(Replicate() if p.is_partial() else p for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from torch.distributed.tensor import Shard
+
+        n = dy.ndim
+        pls = tuple(dy.placements)
+        dims = [p.dim % n for p in pls if p.is_shard()]
+        if 0 in dims and any(0 < d < n - 1 for d in dims):  # batch and sequence split
+            pls = tuple(Shard(n - 1) if p.is_shard() and 0 < p.dim % n < n - 1 else p
+                        for p in pls)
+            if dy.shape[-1] % math.prod(dy.device_mesh.size(i) for i, p in enumerate(pls)
+                                        if p.is_shard() and p.dim == n - 1):
+                pls = ctx.placements
+        if _ranks_split_over(dy, ctx.placements) > _ranks_split_over(dy, pls):
+            pls = ctx.placements
+        return dy if pls == tuple(dy.placements) else dy.redistribute(dy.device_mesh, pls)
+
+
+def grad_in_layout(y):
+    """``y``, a projection's output, whose gradient comes back split at
+    least as finely as ``y`` is, and never with its batch and its sequence
+    split over two mesh dims: such a gradient has its sequence split moved
+    to its features (or takes ``y``'s layout where they do not split
+    evenly). DTensor may hand the gradient back split over the sequence
+    where the output was split over its features (a rank's batch of one
+    row: a microbatch of a small batch), and the batch and sequence splits
+    merge into a strided shard that DTensor cannot multiply once the
+    projection's backward flattens them; or hand it back whole where the
+    output was split, and the backward repeats its products on every rank
+    of the split."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(y, DTensor) or not torch.is_grad_enabled():
+        return y
+    return _GradInLayout.apply(y)
+
+
 class _WholeGrad(torch.autograd.Function):
     """Identity forward; a gradient partial over mesh dims ``dims`` summed
     there."""
@@ -453,6 +536,34 @@ def local_map(fn, out_placements, in_placements, mesh):
     return run
 
 
+def sequence_split_product(x, w):
+    """``x @ w`` for ``x`` (B, S, D) and a weight ``w`` that no mesh dim
+    splits. On a DTensor ``x`` split over nothing but its batch and its
+    sequence, each rank multiplies its own rows and its share of the
+    sequence (``local_map``), the sequence split over every mesh dim of more
+    than one rank that does not split the batch, and the result is split
+    so: GSPMD partitions such a product that way. DTensor left to itself
+    repeats the whole product on every rank of a mesh dim that does not
+    split the batch (the model axis under "dp" when a microbatch has fewer
+    rows than there are ranks), and cannot multiply a rank's single row
+    split over its sequence (the batch and sequence splits merge into a
+    strided shard). Anything else is multiplied as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor) or x.ndim != 3 \
+            or any(not p.is_replicate() for p in w.placements) \
+            or any(not (p.is_replicate() or p.is_shard(0) or p.is_shard(1))
+                   for p in x.placements):
+        return x @ w
+    mesh = x.device_mesh
+    pls = tuple(Shard(1) if p.is_replicate() and mesh.size(i) > 1 else p
+                for i, p in enumerate(x.placements))
+    seq = [i for i, p in enumerate(pls) if p.is_shard(1)]
+    if not seq or x.shape[1] % math.prod(mesh.size(i) for i in seq):
+        return x @ w
+    return local_map(lambda xl, wl: xl @ wl, list(pls), (pls, w.placements), mesh)(x, w)
+
+
 _REPLICATING = contextvars.ContextVar("replicating_plain_tensors", default=False)
 
 
@@ -491,7 +602,8 @@ def with_sharding_constraint(x, sharding: Optional[NamedSharding]):
 
 
 def constrain(shard, name: str, x):
-    """The models' constraint points: ``x`` under ``shard(name, shape)``."""
+    """The models' constraint points: ``x`` under ``shard(name, shape)``
+    (a ``Sharder``'s ``layout``)."""
     if shard is None:
         return x
-    return with_sharding_constraint(x, shard(name, tuple(x.shape)))
+    return with_sharding_constraint(x, getattr(shard, "layout", shard)(name, tuple(x.shape)))

@@ -28,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import (constrain, local_map, split_ready, whole_dim,
-                                              whole_sequence_grad)
+from repro_torch.distributed.sharding import (constrain, local_map, sequence_split_product,
+                                              split_ready, whole_dim, whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -74,7 +74,7 @@ def _heads(cfg):
 
 def _project_q(p, cfg, x):
     h, _, hd = _heads(cfg)
-    q = x @ p["wq"].to(x.dtype)
+    q = sequence_split_product(x, p["wq"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     return split_ready(q, -1, h).reshape(x.shape[0], x.shape[1], h, hd)
@@ -82,8 +82,8 @@ def _project_q(p, cfg, x):
 
 def _project_kv(p, cfg, src, dtype):
     _, kv, hd = _heads(cfg)
-    k = src @ p["wk"].to(dtype)
-    v = src @ p["wv"].to(dtype)
+    k = sequence_split_product(src, p["wk"].to(dtype))
+    v = sequence_split_product(src, p["wv"].to(dtype))
     if "bk" in p:
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
@@ -93,7 +93,7 @@ def _project_kv(p, cfg, src, dtype):
 
 def _out_proj(p, ctx, dtype):
     b, s = ctx.shape[:2]
-    return whole_sequence_grad(ctx.reshape(b, s, -1) @ p["wo"].to(dtype))
+    return whole_sequence_grad(sequence_split_product(ctx.reshape(b, s, -1), p["wo"].to(dtype)))
 
 
 def _expand_kv(k, h: int):

@@ -191,10 +191,10 @@ def apply_mlp(p, x):
         # multiply)
         g, u = x @ wi[:, 0], x @ wi[:, 1]
     else:
-        gu = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
+        gu = shd.sequence_split_product(x, wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
         g, u = gu[..., 0, :], gu[..., 1, :]
     h = F.silu(g.float()).to(x.dtype) * u
-    return shd.whole_sequence_grad(h @ p["wo"].to(x.dtype))
+    return shd.whole_sequence_grad(shd.sequence_split_product(h, p["wo"].to(x.dtype)))
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import local_map, whole_sequence_grad
+from repro_torch.distributed.sharding import (grad_in_layout, local_map, sequence_split_product,
+                                              whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -64,12 +65,36 @@ def ssm_spec(cfg):
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B,L,C), w (W,C), b (C,)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _conv_per_shard(x, w, b)
     width = w.shape[0]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):  # W is 4: unrolled multiply-adds, as in the reference
         out = out + xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
     return out + b.to(x.dtype)
+
+
+def _conv_per_shard(x, w, b):
+    """The conv on DTensors, run on each rank's batch and channel shards
+    (``local_map``): it mixes neighbouring positions of one channel only,
+    so the batch and channel splits stay and the sequence is made whole
+    (torch 2.11's DTensor cannot plan the redistribution ``F.pad`` asks for
+    at full width on a (16, 16) mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    xs, ws, bs = [], [], []
+    for p in x.placements:
+        d = p.dim % 3 if p.is_shard() else None
+        x_pl, w_pl, b_pl = ((Shard(0), R, R) if d == 0 else
+                            (Shard(2), Shard(1), Shard(0)) if d == 2 else (R, R, R))
+        xs.append(x_pl)
+        ws.append(w_pl)
+        bs.append(b_pl)
+    return local_map(_causal_conv, xs, (xs, ws, bs), x.device_mesh)(x, w, b)
 
 
 def _conv_step(buf, x_t, w, b):
@@ -177,11 +202,11 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
     b, l, d = x.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv
-    z = x @ p["in_z"].to(x.dtype)
-    xi_raw = x @ p["in_x"].to(x.dtype)
-    bm_raw = x @ p["in_b"].to(x.dtype)
-    cm_raw = x @ p["in_c"].to(x.dtype)
-    dt = x @ p["in_dt"].to(x.dtype)
+    # on a mesh: the projections split over their features keep their
+    # gradients in layout (``grad_in_layout``), and B and C, whose weights
+    # no mesh dim splits, are multiplied on sequence shards
+    z, xi_raw, dt = (grad_in_layout(x @ p[k].to(x.dtype)) for k in ("in_z", "in_x", "in_dt"))
+    bm_raw, cm_raw = (sequence_split_product(x, p[k].to(x.dtype)) for k in ("in_b", "in_c"))
 
     xi = F.silu(_causal_conv(xi_raw, p["conv_x"], p["conv_bias_x"]).float()).to(x.dtype)
     bm = F.silu(_causal_conv(bm_raw, p["conv_b"], p["conv_bias_b"]).float()).to(x.dtype)

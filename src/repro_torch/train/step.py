@@ -105,9 +105,35 @@ def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):
 def _microbatch(v, i: int, accum: int):
     """Microbatch ``i`` of ``accum``: a contiguous block of rows, as the
     reference splits the batch. On a mesh it is laid out as the whole batch
-    (DTensor moves the block's rows to the ranks that hold them)."""
+    as far as its rows split evenly (DTensor moves the block's rows to the
+    ranks that hold them; ``_block_layout``)."""
     n = v.shape[0] // accum
-    return _laid_out_like(v[i * n:(i + 1) * n], v)
+    block = v[i * n:(i + 1) * n]
+    pls = _block_layout(v, n)
+    if pls is None or tuple(block.placements) == pls:
+        return block
+    return block.redistribute(block.device_mesh, pls)
+
+
+def _block_layout(v, rows: int):
+    """The placements of a block of ``rows`` rows of the DTensor ``v``: its
+    row split kept on the leading mesh dims over which the block's rows
+    still split evenly (``sharding.even_axes``), and held whole on the rest
+    (a block of 8 rows of a batch split over (4, 4) ranks is split over the
+    first 4), as the model's sharder lays a microbatch's activations out.
+    DTensor splits an uneven dim as ``torch.chunk`` does, and its views of
+    such a dim take the wrong local shapes. None for a plain tensor."""
+    from torch.distributed.tensor import Replicate
+
+    pls = getattr(v, "placements", None)
+    if pls is None:
+        return None
+    mesh = v.device_mesh
+    names = mesh.mesh_dim_names
+    split = [names[i] for i, p in enumerate(pls) if p.is_shard() and p.dim % v.ndim == 0]
+    keep = shd.even_axes(tuple(split), rows, mesh)
+    return tuple(Replicate() if p.is_shard() and p.dim % v.ndim == 0 and names[i] not in keep
+                 else p for i, p in enumerate(pls))
 
 
 def _laid_out_like(new, old):
