@@ -179,7 +179,14 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    useful-FLOP fraction in (0.2, 1.05] and the data-parallel gradient's
    all-reduce carrying between 1 and ``GRAD_AR_MAX`` times the
    parameters' bf16 gradient bytes (every gradient reduced over "data"
-   once; the tied table's two uses one by one).
+   once; the tied table's two uses one by one);
+18. the port's examples as a user runs them (``examples_phase``), beside
+   phase 15's child after phase 16: ``examples/serve_lm_torch.py`` (the
+   reduced qwen2-0.5b through ``DecodeEngine``: prefill and decode times,
+   4 requests of 17 tokens) and ``examples/train_lm_torch.py --steps 20``
+   (the ~100M-family qwen2 config through the ``Trainer``, the loss
+   improving) as two child processes at once under ``build/examples``,
+   each on this card (its first line names it), within 60 s of wall time.
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
@@ -203,6 +210,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -391,6 +399,11 @@ PHASE10_STEP_S = 0.3548
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train")
 TRAIN_CKPT_DIR = os.path.join(TRAIN_DIR, "ckpt")
 TRAIN_CHILD_TIMEOUT = 600.0
+# phase 18: the port's examples as a user runs them, children on the card
+# beside phase 15's launcher child, both at once, within EXAMPLES_WALL_S
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "examples")
+EXAMPLES_WALL_S = 60.0
+EXAMPLE_RUNS = {"serve_lm_torch.py": (), "train_lm_torch.py": ("--steps", "20")}
 # phase 16: benchmarks/bench_scenarios.py's composed scenario at its smoke
 # size (composed_spec(smoke=True), copied: the port imports nothing of
 # benchmarks/), on its fleet of four in-process replicas, replayed as fast as
@@ -2346,6 +2359,54 @@ def scenario_phase():
           f"fleet and replay {t_replay:.1f} s")
 
 
+def examples_phase(torch) -> None:
+    """Phase 18: ``EXAMPLE_RUNS`` as child processes at once, each in
+    ``EXAMPLES_DIR``, within ``EXAMPLES_WALL_S``: each exits 0, names this
+    card on its first line and prints its example's lines."""
+    print("== phase 18: the port's examples on the card, as child processes: "
+          + ", ".join(" ".join((k,) + v) for k, v in EXAMPLE_RUNS.items()))
+    t0 = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLES_DIR)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(here, "examples", name), *args],
+                                    cwd=EXAMPLES_DIR, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in EXAMPLE_RUNS.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            left = max(0.1, EXAMPLES_WALL_S - (time.perf_counter() - t0))
+            out[name] = proc.communicate(timeout=left)
+    except subprocess.TimeoutExpired:
+        check(False, f"phase 18's examples ran past {EXAMPLES_WALL_S:.0f} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    for name, proc in procs.items():
+        stdout, stderr = out[name]
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {stderr[-4000:]}")
+        lines = stdout.splitlines()
+        check(lines[:1] == [f"device: {card}"], f"{name} ran on {lines[:1]}, not {card}")
+        print(f"{name}: " + " | ".join(lines))
+    serve = out["serve_lm_torch.py"][0]
+    check("arch=qwen2-0.5b (reduced) batch=4" in serve
+          and re.search(r"^prefill: [\d.]+ ms, decode: [\d.]+ ms/token$", serve, re.M)
+          and [len(t.split(",")) for t in re.findall(r"^  request \d: \[(.*)\]$", serve, re.M)]
+          == [17] * 4, "serve_lm_torch.py's lines")
+    loss = re.search(r"^loss ([\d.]+) -> ([\d.]+) over 20 steps \(retries=0\)$",
+                     out["train_lm_torch.py"][0], re.M)
+    check(loss is not None and float(loss[2]) < float(loss[1]), "train_lm_torch.py's loss line")
+    shutil.rmtree(EXAMPLES_DIR)
+    print(f"phase 18 wall time {wall:.1f} s")
+
+
 def new_archs_phase(torch, F, kops, attention_ref, get_config, build_model, all_plain,
                     DecodeEngine, counters):
     """Phase 13: the MoE, hybrid, VLM and audio archs of ``PHASE13`` at full
@@ -2564,9 +2625,10 @@ def main() -> int:
                           lm_records[:len(PROFILE_POINTS)], get_config, tprof, counters)
     dryrun = {}
 
-    def beside_the_launcher():  # phases 16 and 17's dry run while the launcher trains
+    def beside_the_launcher():  # phases 16, 17's dry run and 18 while the launcher trains
         started = dryrun_start(os.path.join(TRAIN_DIR, "abacus"))
         scenario_phase()
+        examples_phase(torch)
         dryrun["wall_s"] = dryrun_finish(**started)
     train_phase(torch, abacus1, get_config, new_archs["train"], meanwhile=beside_the_launcher)
     print(f"phase 17 wall time: the sharded child {new_archs['sharded']:.1f} s beside phase 11's "

@@ -23,9 +23,10 @@ the rig's four optimizers, ``zoo_train_step``), then record:
 The graph is traced by ``make_fx`` on fake tensors, with every kernel pinned
 plain, so FLOPs and the NSM need no card. Time and memory come only from
 the card: a measurement on the CPU raises rather than return a number that
-is not the card's. As in the reference, the timed steps run on an all-zero
-state and batch. ``profile_zoo`` profiles one of the 29 zoo CNNs
-(``repro_torch.core.zoo``) this way, ``profile_lm`` one LM.
+is not the card's (``profile_zoo_on_host`` measures the host, for a run
+that asks for the CPU by name). As in the reference, the timed steps run
+on an all-zero state and batch. ``profile_zoo`` profiles one of the 29 zoo
+CNNs (``repro_torch.core.zoo``) this way, ``profile_lm`` one LM.
 
 A corpus can make its records in two parts: ``TraceAhead`` runs the
 traces (``trace_point``) in spawned worker processes while the card does
@@ -126,10 +127,9 @@ def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _paddi
     return flops
 
 
-def trace_step(step_fn, args, device="cpu") -> Dict:
-    """FLOPs and NSM edges of ``step_fn(*args)``, with ``args`` a pytree of
-    tensors whose shapes and dtypes are taken (``meta`` tensors will do),
-    traced on fake tensors placed on ``device``."""
+def _traced(step_fn, args, device):
+    """The aten graph of ``step_fn(*args)`` traced on fake tensors placed on
+    ``device``, and its FLOPs."""
     fake_mode = FakeTensorMode()
     with fake_mode:
         fake = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device=device), args)
@@ -138,7 +138,15 @@ def trace_step(step_fn, args, device="cpu") -> Dict:
         gm = nsm_lib.trace(step_fn, *fake)
         with fake_mode, FlopCounterMode(display=False, custom_mapping=mapping) as counter:
             gm(*fake)
-    return {"flops": float(counter.get_total_flops()), "nsm_edges": nsm_lib.nsm_edges(gm)}
+    return gm, float(counter.get_total_flops())
+
+
+def trace_step(step_fn, args, device="cpu") -> Dict:
+    """FLOPs and NSM edges of ``step_fn(*args)``, with ``args`` a pytree of
+    tensors whose shapes and dtypes are taken (``meta`` tensors will do),
+    traced on fake tensors placed on ``device``."""
+    gm, flops = _traced(step_fn, args, device)
+    return {"flops": flops, "nsm_edges": nsm_lib.nsm_edges(gm)}
 
 
 def time_step(step_fn, inputs, steps: int = 3) -> Dict:
@@ -238,6 +246,33 @@ def profile_zoo_model(model: ZooModel, batch: int = 16, image: int = 32, lr: flo
     return zoo_record(model, batch, image, flops=meas["flops"], nsm_edges=meas["nsm_edges"],
                       lr=lr, optimizer=optimizer, epoch=epoch, time_s=meas["time_s"],
                       mem_bytes=meas["mem_bytes"], family=family, platform=platform)
+
+
+def profile_zoo_on_host(name: str, batch: int = 16, image: int = 32, lr: float = 0.1,
+                        optimizer: str = "sgd", steps: int = 3) -> ProfileRecord:
+    """``profile_zoo`` for a run that asks for the CPU (the examples'
+    ``--device cpu``): the step's median wall-clock time over ``steps``
+    calls on all-zero CPU inputs, after one warm-up call, and for memory the
+    peak live bytes of its traced program (``analysis.hlo.live_bytes``; the
+    host's allocator keeps no peak). These are the host's numbers, not the
+    card's: a predictor fit on them is stored apart from one fit on the
+    card's and never fit beside them."""
+    from repro_torch.analysis.hlo import live_bytes
+
+    model = build_zoo_model(name, 3, image)
+    step, args = zoo_step_args(model, batch, image, optimizer, lr)
+    gm, flops = _traced(step, args, "cpu")
+    inputs = zeros_like_specs(args, "cpu")
+    step(*inputs)
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(*inputs)
+        times.append(time.perf_counter() - t0)
+    return zoo_record(model, batch, image, flops=flops, nsm_edges=nsm_lib.nsm_edges(gm),
+                      lr=lr, optimizer=optimizer, epoch=1,
+                      time_s=float(statistics.median(times)),
+                      mem_bytes=float(live_bytes(gm)["peak"]))
 
 
 def profile_zoo(name: str, batch: int = 16, image: int = 32,

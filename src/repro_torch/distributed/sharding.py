@@ -299,14 +299,16 @@ class Sharder:
                           self.mesh)
         return self(name, shape, self.rules.replace(batch=batch))
 
-    def whole(self, p):
+    def whole(self, p, keep=()):
+        """``p`` in its compute layout; its splits over the mesh dims
+        ``keep`` (indices) are kept, whatever their axes."""
         from torch.distributed.tensor import DTensor, Replicate
 
         if not isinstance(p, DTensor):
             return p
         names = p.device_mesh.mesh_dim_names
-        pls = tuple(Replicate() if pl.is_shard() and names[i] in self.dp_axes else pl
-                    for i, pl in enumerate(p.placements))
+        pls = tuple(Replicate() if pl.is_shard() and names[i] in self.dp_axes and i not in keep
+                    else pl for i, pl in enumerate(p.placements))
         return p if pls == tuple(p.placements) else p.redistribute(p.device_mesh, pls)
 
 

@@ -50,14 +50,11 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, card_unless_asked
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import LoopConfig, Trainer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("launch.train: CUDA is not available; the job runs on the card "
-                           "by default (pass --device cpu to ask for the CPU)")
+    device = card_unless_asked(args.device, "pass --device cpu")
     cfg = get_config(args.arch)
     if not args.full_size:
         cfg = reduced_config(cfg)

@@ -1,1 +1,1 @@
-from repro_torch.models.api import build_model  # noqa: F401
+from repro_torch.models.api import build_model, card_unless_asked  # noqa: F401

@@ -25,11 +25,18 @@ def build_model(cfg: ModelConfig, device=None, sharder=None) -> StackModel:
     ``sharder`` is the activation-constraint hook of a mesh
     (``distributed.sharding.make_sharder``), None on one device.
     """
+    return StackModel(cfg, card_unless_asked(device), sharder)
+
+
+def card_unless_asked(device=None, ask: str = "pass device='cpu'") -> torch.device:
+    """``device`` as a ``torch.device``, by default the card; a CUDA device
+    where CUDA is missing raises rather than fall back to the CPU (``ask``
+    says how a caller asks for the CPU)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_model: CUDA is not available; the port runs on the "
-                           "card by default (pass device='cpu' to ask for the CPU)")
-    return StackModel(cfg, device, sharder)
+        raise RuntimeError(f"CUDA is not available; the port runs on the card by default "
+                           f"({ask} to ask for the CPU)")
+    return device
 
 
 @contextlib.contextmanager

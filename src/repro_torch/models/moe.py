@@ -116,6 +116,20 @@ def apply_moe(p, cfg, x, shard=None):
     return y.reshape(b, s, d), aux
 
 
+def expert_split(wi, wo, x):
+    """The mesh dims (indices) over which ``wi`` and ``wo`` both split their
+    expert dim and the DTensor ``x`` does not split its rows: there the
+    experts stay split for compute, and ``_per_shard`` runs each rank's own
+    on the tokens that all ranks of the dim hold alike. Empty for plain
+    tensors."""
+    from torch.distributed.tensor import DTensor
+
+    if not all(isinstance(t, DTensor) for t in (wi, wo, x)):
+        return ()
+    return tuple(i for i, (a, b, r) in enumerate(zip(wi.placements, wo.placements, x.placements))
+                 if a.is_shard(0) and b.is_shard(0) and not r.is_shard(0))
+
+
 def _experts(cfg, router, wi, wo, x, e0: int):
     """One rank's part of the layer: its tokens ``x`` (B,S,D) routed over all
     experts, dispatched to and combined from its experts ``e0`` onwards (as

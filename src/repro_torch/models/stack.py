@@ -87,14 +87,15 @@ def _params(sub, dtype: torch.dtype, device):
     return nn.ParameterDict({k: one(ps) for k, ps in sub.items()})
 
 
-def _whole(sharder, sub):
+def _whole(sharder, sub, keep=None):
     """A sub-block's parameters (or one parameter) made whole for compute
-    along the data-parallel axes, where the sharder says so."""
+    along the data-parallel axes, where the sharder says so; ``keep`` maps a
+    parameter's name to the mesh dims whose split it keeps."""
     whole = getattr(sharder, "whole", None)
     if whole is None:
         return sub
     if isinstance(sub, nn.ParameterDict):
-        return {k: whole(v) for k, v in sub.items()}
+        return {k: whole(v, keep=(keep or {}).get(k, ())) for k, v in sub.items()}
     return whole(sub)
 
 
@@ -120,6 +121,17 @@ class _Layer(nn.Module):
         """The parameters ``name`` in their compute layout (``Sharder.whole``)."""
         return _whole(self.sharder, getattr(self, name))
 
+    def _moe_w(self, x):
+        """The MoE block's parameters in their compute layout for the tokens
+        ``x``: as ``_w``, but ``wi`` and ``wo`` keep an FSDP split of their
+        expert dim over the mesh dims that do not split the rows of ``x``
+        (``moe.expert_split``), so that each rank there serves its own
+        experts, as GSPMD divides the expert products, where a gather would
+        have every rank repeat all of them on the same rows."""
+        sub = self.mlp
+        dims = moe_lib.expert_split(sub["wi"], sub["wo"], x)
+        return _whole(self.sharder, sub, {"wi": dims, "wo": dims})
+
     def _norm1(self, x):
         return L.apply_norm(self._w("norm1"), x)
 
@@ -138,7 +150,7 @@ class _Layer(nn.Module):
         if mlp == "dense":
             y, aux = L.apply_mlp(self._w("mlp"), h), None
         else:
-            y, aux = moe_lib.apply_moe(self._w("mlp"), self.cfg, h, shard=self.sharder)
+            y, aux = moe_lib.apply_moe(self._moe_w(h), self.cfg, h, shard=self.sharder)
             if mlp == "moe_dense":
                 y = y + L.apply_mlp(self._w("mlp_dense"), h)
         x = x + y

@@ -91,6 +91,7 @@ def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         with shd.replicate_plain_tensors(state["step"]):
             loss, metrics, grads = compute_grads(state["params"], batch)
+            grads = _reduced_into(grads, state["opt"]["m"])
             new_params, new_opt, opt_metrics = opt_lib.apply_updates(
                 opt_cfg, state["params"], grads, state["opt"])
         metrics = dict(metrics)
@@ -134,6 +135,22 @@ def _block_layout(v, rows: int):
     keep = shd.even_axes(tuple(split), rows, mesh)
     return tuple(Replicate() if p.is_shard() and p.dim % v.ndim == 0 and names[i] not in keep
                  else p for i, p in enumerate(pls))
+
+
+def _reduced_into(grads, moments):
+    """Each DTensor gradient left partial over a mesh dim (the sum of the
+    ranks' parts: a weight a per-shard region reads as it is stored, such
+    as experts split over ``model`` while the rows split over ``data``)
+    reduced once, into its moment's layout (its ZeRO shard), where the
+    optimizer reads it; DTensor would reduce it again at each use (the
+    norm, each moment, the master)."""
+    out = {}
+    for k, g in grads.items():
+        pls = getattr(g, "placements", None)
+        if pls is not None and any(p.is_partial() for p in pls):
+            g = g.redistribute(g.device_mesh, moments[k].placements)
+        out[k] = g
+    return out
 
 
 def _laid_out_like(new, old):

@@ -182,13 +182,16 @@ def _model_and_state(arch, npz, dtype="float32"):
 
 
 def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, model_par,
-                  lr, warmup_steps, accum=1, norm_kernel=False):
+                  lr, warmup_steps, accum=1, norm_kernel=False, scheme="sp"):
     """``steps`` sharded train steps of the reduced ``arch`` (weights from
     ``npz``; AdamW at ``lr`` after ``warmup_steps``, ``accum`` microbatches)
-    on a (data, model_par) mesh with ZeRO-1; then the elastic
-    restore of its checkpoint onto (4, 1) over the same ranks and onto
-    (1, 1) in a one-rank world. Returns the losses, gradient norms, final
-    parameters and the restores' bit-for-bit verdicts."""
+    on a (data, model_par) mesh with ZeRO-1, laid out by the sharding
+    ``scheme``; then the elastic restore of its checkpoint onto (4, 1) over
+    the same ranks and onto (1, 1) in a one-rank world. Returns the losses,
+    gradient norms, final parameters, the placements of the first moments
+    and of the MoE experts' weights before and after the steps, how many
+    experts a rank's MoE layer served, and the restores' bit-for-bit
+    verdicts."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -199,10 +202,17 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
+    from repro_torch.models import moe
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import step as step_lib
 
-    kernel_calls = []
+    kernel_calls, local_experts = [], set()
+    experts_of = moe._experts
+
+    def counted_experts(cfg, router, wi, wo, x, e0):
+        local_experts.add(wi.shape[0])  # the experts this rank serves
+        return experts_of(cfg, router, wi, wo, x, e0)
+    moe._experts = counted_experts
     if norm_kernel:
         # the RMSNorm kernels' wrapper on each rank's rows (layers._rmsnorm_local); on
         # the CPU it runs the kernel's plain version
@@ -213,14 +223,19 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
 
     cfg, params = _model_and_state(arch, npz)
     mesh = make_host_mesh(data, model_par, device="cpu")
-    model = build_model(cfg, device="cpu", sharder=shd.make_sharder(mesh))
+    model = build_model(cfg, device="cpu", sharder=shd.make_sharder(mesh, scheme=scheme))
     model.load_state_dict(params)
     opt_cfg = opt_lib.OptConfig(lr=lr, warmup_steps=warmup_steps)
     state = {"params": {k: v.detach() for k, v in model.named_parameters()},
              "step": torch.zeros((), dtype=torch.int32)}
     state["opt"] = opt_lib.init_opt_state(opt_cfg, state["params"])
-    sh = step_lib.state_shardings(model, opt_cfg, mesh, zero=True)
+    sh = step_lib.state_shardings(model, opt_cfg, mesh, zero=True, scheme=scheme)
     state = step_lib.distribute_state(state, sh)
+
+    def experts():
+        return {k: [str(p) for p in v.placements] for k, v in state["params"].items()
+                if k.endswith(("mlp.wi", "mlp.wo"))}
+    experts_before = experts()
     src = SyntheticLM(cfg.vocab_size, batch, seq, 0)
     loader = ShardedLoader(src, step_lib.batch_shardings(mesh, src.batch_at(0)))
     step = step_lib.make_train_step(model, opt_cfg, accum=accum)
@@ -234,6 +249,7 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
         loader.close()
     placements = {k: [str(p) for p in v.placements]
                   for k, v in list(state["opt"]["m"].items())[:4]}
+    experts_after = experts()
     final = {k: v.full_tensor().numpy().tolist() for k, v in state["params"].items()}
     ckpt.save(ckpt_dir, steps, state)
     written = ckpt.read_arrays(ckpt_dir, steps)
@@ -246,7 +262,7 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
             written[k].view(-1).view(torch.uint8)) for k, v in flat.items())
 
     mesh41 = make_host_mesh(4, 1, device="cpu")
-    sh41 = step_lib.state_shardings(model, opt_cfg, mesh41, zero=True)
+    sh41 = step_lib.state_shardings(model, opt_cfg, mesh41, zero=True, scheme=scheme)
     restored41 = ckpt.restore(ckpt_dir, steps, like, sh41)
     ok41 = same(restored41)
     split41 = str(restored41["opt"]["m"][next(iter(restored41["opt"]["m"]))].placements)
@@ -256,9 +272,11 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
         dist.destroy_process_group()
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
         mesh11 = make_host_mesh(1, 1, device="cpu")
-        sh11 = step_lib.state_shardings(model, opt_cfg, mesh11, zero=True)
+        sh11 = step_lib.state_shardings(model, opt_cfg, mesh11, zero=True, scheme=scheme)
         ok11 = same(ckpt.restore(ckpt_dir, steps, like, sh11))
     return {"losses": losses, "grad_norms": gnorms, "params": final, "placements": placements,
+            "experts_before": experts_before, "experts_after": experts_after,
+            "local_experts": sorted(local_experts),
             "restore_4x1": ok41, "restore_4x1_m": split41, "restore_1x1": ok11,
             "kernel_calls": len(kernel_calls)}
 
@@ -357,6 +375,20 @@ def traced_cell(rank, world, arch, scheme, batch, seq):
             "unused_ops": sum(n.op == "call_function" and not n.users for n in nodes),
             "collectives": roofline.collective_stats(graph),
             "grad_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+
+
+def collectives_cell(rank, world, arch, scheme, batch, seq):
+    """Each collective of a reduced train cell's traced step on a (4, 4)
+    mesh of a fake world: its kind and its result's shape."""
+    from repro_torch.analysis import hlo
+    from repro_torch.distributed import sharding as shd
+
+    dr = _reduced_cells(batch, seq)
+    _, graph = dr._lower_cell(arch, "train", dr.make_production_mesh(), shd.ShardingRules(),
+                              scheme=scheme)
+    return [[hlo.coll_kind(n.target), list(next(hlo.tensors(n.meta["val"])).shape)]
+            for n in graph.graph.nodes
+            if n.op == "call_function" and hlo.coll_kind(n.target) is not None]
 
 
 def dot_flops_cell(rank, world, arch, scheme, batch, seq):

@@ -23,6 +23,16 @@ mesh over the same ranks and onto (1, 1) in a one-rank world (the elastic
 restart of ``tests/test_ckpt_ft.py``'s reference case). mamba2-370m and
 moonshot-v1-16b-a3b (experts split over ``model``) take over 30 s each and
 are marked ``slow``.
+
+Two cases run the "dp" scheme (``make_sharder`` and ``state_shardings``
+with ``scheme="dp"``: the batch over both mesh dims, every weight
+FSDP-split over ``model`` and gathered where a layer reads it):
+qwen2-0.5b, and moonshot-v1-16b-a3b (``slow``) at batch 4, ``accum`` 2 and
+seq 64, whose microbatches of 2 rows split over ``data`` only, so that the
+4 experts' weights stay split over ``model`` for compute (2 experts a rank,
+each rank's row one whole group of 64 tokens): each rank's MoE layer
+serves its 2 experts, and their placements are the same before and after
+the steps.
 """
 
 import numpy as np
@@ -51,7 +61,7 @@ STEPS, BATCH, SEQ = 2, 4, 16
 LR, WARMUP = 1e-3, 1
 
 
-def _reference_and_unsharded(arch, accum, tmp_path):
+def _reference_and_unsharded(arch, accum, seq, tmp_path):
     """The JAX init written for the world; the initial parameters; and the
     losses, gradient norms and final parameters of the reference's and the
     port's unsharded steps."""
@@ -60,7 +70,7 @@ def _reference_and_unsharded(arch, accum, tmp_path):
     params = jm.init(jax.random.key(0))
     npz = str(tmp_path / "weights.npz")
     np.savez(npz, **{k.replace("/", "|"): v for k, v in jax_flat(params).items()})
-    src = SyntheticLM(cfg.vocab_size, BATCH, SEQ, 0)
+    src = SyntheticLM(cfg.vocab_size, BATCH, seq, 0)
     batches = [src.batch_at(i) for i in range(STEPS)]
 
     opt_j = jopt.OptConfig(lr=LR, warmup_steps=WARMUP)
@@ -111,18 +121,24 @@ def _worst_update_error(got, want, init):
     return worst, at
 
 
-@pytest.mark.parametrize("arch,accum", [
-    pytest.param("qwen2-0.5b", 1, id="qwen2-0.5b"),
-    pytest.param("qwen2-0.5b", 2, id="qwen2-0.5b-accum2"),
-    pytest.param("mamba2-370m", 1, id="mamba2-370m", marks=pytest.mark.slow),
-    pytest.param("moonshot-v1-16b-a3b", 1, id="moonshot-v1-16b-a3b", marks=pytest.mark.slow),
+@pytest.mark.parametrize("arch,accum,scheme,seq", [
+    pytest.param("qwen2-0.5b", 1, "sp", SEQ, id="qwen2-0.5b"),
+    pytest.param("qwen2-0.5b", 2, "sp", SEQ, id="qwen2-0.5b-accum2"),
+    pytest.param("qwen2-0.5b", 1, "dp", SEQ, id="qwen2-0.5b-dp"),
+    pytest.param("mamba2-370m", 1, "sp", SEQ, id="mamba2-370m", marks=pytest.mark.slow),
+    pytest.param("moonshot-v1-16b-a3b", 1, "sp", SEQ, id="moonshot-v1-16b-a3b",
+                 marks=pytest.mark.slow),
+    pytest.param("moonshot-v1-16b-a3b", 2, "dp", 64, id="moonshot-v1-16b-a3b-dp",
+                 marks=pytest.mark.slow),
 ])
-def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, tmp_path):
-    npz, init, ref, mine, params, ref_params = _reference_and_unsharded(arch, accum, tmp_path)
+def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, scheme, seq,
+                                                               tmp_path):
+    npz, init, ref, mine, params, ref_params = _reference_and_unsharded(arch, accum, seq,
+                                                                        tmp_path)
     out = run_world("sharded_steps", 4, tmp_path, timeout=180 if arch != "qwen2-0.5b" else 120,
                     arch=arch, npz=npz, ckpt_dir=str(tmp_path / "ck"), steps=STEPS,
-                    batch=BATCH, seq=SEQ, data=2, model_par=2, lr=LR, warmup_steps=WARMUP,
-                    accum=accum, norm_kernel=arch == "qwen2-0.5b")
+                    batch=BATCH, seq=seq, data=2, model_par=2, lr=LR, warmup_steps=WARMUP,
+                    accum=accum, norm_kernel=arch == "qwen2-0.5b", scheme=scheme)
     got = list(zip(out["losses"], out["grad_norms"]))
     np.testing.assert_allclose(got, mine, rtol=LOSS_RTOL, atol=0)
     np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL, atol=0)
@@ -141,3 +157,8 @@ def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, tmp_
     assert "Shard" in out["restore_4x1_m"], out["restore_4x1_m"]
     if arch == "qwen2-0.5b":
         assert out["kernel_calls"] > 0
+    if arch == "moonshot-v1-16b-a3b" and scheme == "dp":
+        # the experts' weights stay split over "model" (mesh dim 1) through the steps
+        assert out["experts_after"] == out["experts_before"], out["experts_after"]
+        assert out["experts_after"] and all(p[1] == "S(0)" for p in out["experts_after"].values())
+        assert out["local_experts"] == [2], out["local_experts"]  # 4 experts over 2 ranks

@@ -114,6 +114,26 @@ def test_traced_step_runs_from_the_shards_to_the_new_state(tmp_path):
     assert out["grad_bytes"] <= ar <= GRAD_AR_MAX * out["grad_bytes"], (ar, out["grad_bytes"])
 
 
+def test_dp_experts_stay_split_through_the_traced_step(tmp_path):
+    """moonshot-v1-16b-a3b's reduced "dp" train cell, whose microbatches of
+    8 rows split over "data" only: no collective makes an expert weight
+    whole (the experts stay split over "model" for compute), and each
+    layer's ``wi`` and ``wo`` gradients are reduce-scattered once, into
+    their ZeRO shards (split over "model" on the experts and over "data" on
+    the next dim), not again over "model" nor once per optimizer use."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = reduced_config(get_config("moonshot-v1-16b-a3b"))
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    colls = run_world("collectives_cell", 16, tmp_path, fake=True, arch=cfg.name, scheme="dp",
+                      batch=BATCH, seq=SEQ)
+    whole = ([e, d, 2, f], [e, f, d])
+    assert not [c for c in colls if c[1] in whole], colls
+    zero = ([e // 4, d // 4, 2, f], [e // 4, f // 4, d])
+    for shape in zero:
+        assert [c for c in colls if c[1] == shape] == [["reduce-scatter", shape]] * cfg.num_layers
+
+
 def test_sweep_cells_and_report_table_equal_the_reference(tmp_path):
     for meshes in ([False], [False, True]):
         assert sweep.cells(meshes) == jsweep.cells(meshes)
