@@ -538,6 +538,30 @@ def local_map(fn, out_placements, in_placements, mesh):
     return run
 
 
+def split_idle(t, dim: int) -> list:
+    """One placement a mesh dim for a per-shard region over the DTensor
+    ``t`` that is independent across its rows (dim 0) and its ``dim``
+    (heads, channels): ``t``'s split of either is kept and anything else
+    made whole; and ``dim`` is split as well over each mesh dim of more than
+    one rank that splits neither, in mesh order, as long as it still splits
+    evenly. Each rank of such a dim then runs its share of the region, where
+    it would repeat all of it on the rows that every rank of the dim holds
+    alike (the model axis under "dp" when a microbatch has fewer rows than
+    there are ranks), as GSPMD divides it. A mesh dim of one rank is left
+    as it is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, size = t.device_mesh, t.shape[dim]
+    out = [p if p.is_shard() and p.dim % t.ndim in (0, dim) else Replicate()
+           for p in t.placements]
+    n = math.prod(mesh.size(i) for i, p in enumerate(out) if p.is_shard(dim))
+    for i, p in enumerate(out):
+        if p.is_replicate() and mesh.size(i) > 1 and size % (n * mesh.size(i)) == 0:
+            out[i] = Shard(dim)
+            n *= mesh.size(i)
+    return out
+
+
 def sequence_split_product(x, w):
     """``x @ w`` for ``x`` (B, S, D) and a weight ``w`` that no mesh dim
     splits. On a DTensor ``x`` split over nothing but its batch and its

@@ -29,7 +29,8 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed.sharding import (constrain, local_map, sequence_split_product,
-                                              split_ready, whole_dim, whole_sequence_grad)
+                                              split_idle, split_ready, whole_dim,
+                                              whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -158,14 +159,23 @@ def _per_shard(fn, q, k, v, *rest):
     shards (``local_map``): attention is independent across batch rows and
     heads, and DTensor cannot multiply a batch and a head split over two mesh
     dims once they merge into one. K/V are expanded to the query heads
-    first; the sequence and head dims are made whole."""
+    first; the sequence and head dims are made whole. A mesh dim that splits
+    neither the rows nor the heads splits the heads where they divide it
+    (``split_idle``: the model axis under "dp" for a microbatch of fewer rows
+    than ranks; from q's sequence split an all-to-all), and the context goes
+    back to q's layout there; where they do not, every rank of the dim runs
+    the whole region."""
     from torch.distributed.tensor import Replicate
 
-    h = q.shape[2]
+    h, mesh = q.shape[2], q.device_mesh
     k, v = _expand_kv(k, h), _expand_kv(v, h)
-    pls = [p if p.is_shard() and p.dim % 4 in (0, 2) else Replicate() for p in q.placements]
-    fn_local = local_map(fn, pls, (pls, pls, pls) + (None,) * len(rest), q.device_mesh)
-    return fn_local(q, k, v, *rest)
+    pls = split_idle(q, 2)
+    ctx = local_map(fn, pls, (pls, pls, pls) + (None,) * len(rest), mesh)(q, k, v, *rest)
+    # where the heads were split for the region alone, the context goes back
+    # to q's layout (from its sequence split, an all-to-all each way)
+    back = [p if p == pq or not p.is_shard(2) else pq if pq.is_shard() else Replicate()
+            for p, pq in zip(pls, q.placements)]
+    return ctx if back == pls else ctx.redistribute(mesh, back)
 
 
 def _is_dtensor(t) -> bool:

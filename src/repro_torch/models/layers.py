@@ -260,8 +260,13 @@ def _vocab_parallel_lookup(tokens, table):
 
 
 def unembed(p, x, softcap: float = 0.0, vocab: int = 0):
+    """Logits (..., V) in fp32. On a mesh where no dim splits the weight
+    (the "dp" scheme gathers it), the rows' sequence is split over the mesh
+    dims that leave the batch whole (``sequence_split_product``), so no rank
+    repeats another's logits; the softcap, the pad mask and the loss take
+    the sequence-split logits as they are."""
     w = p["table"].T if "unembed" not in p else p["unembed"]
-    logits = (x @ w.to(x.dtype)).float()
+    logits = shd.sequence_split_product(x, w.to(x.dtype)).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     if vocab and vocab < logits.shape[-1]:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (grad_in_layout, local_map, sequence_split_product,
-                                              whole_sequence_grad)
+                                              split_idle, whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -130,12 +130,17 @@ def _per_shard(xb, dt, a_neg, bmat, cmat, chunk: int):
     multiply a batch and heads split over two mesh dims once they merge.
     Per mesh dim: the batch split (every input but ``a_neg`` on its dim 0),
     the heads split (``xb``/``dt`` on dim 2, ``a_neg`` on 0; B and C whole),
-    or nothing split; the sequence is made whole."""
+    or nothing split; the sequence is made whole. A mesh dim that splits
+    neither the rows nor the heads splits the heads where they divide it
+    (``split_idle``), and the output and the state go back to ``xb``'s
+    layout there: the gated norm and the output projection after the scan
+    run on ``xb``'s layout as before."""
     from torch.distributed.tensor import Replicate, Shard
 
     R = Replicate()
     ins, outs = ([], [], [], [], []), ([], [])
-    for p in xb.placements:
+    pls = split_idle(xb, 2)
+    for p in pls:
         d = p.dim % 4 if p.is_shard() else None
         row = ((Shard(0), Shard(0), R, Shard(0), Shard(0)) if d == 0 else
                (Shard(2), Shard(2), Shard(0), R, R) if d == 2 else (R,) * 5)
@@ -143,7 +148,14 @@ def _per_shard(xb, dt, a_neg, bmat, cmat, chunk: int):
         for lst, pl in zip(ins + outs, row + out):
             lst.append(pl)
     fn = local_map(ssd_chunked, outs, ins + (None,), xb.device_mesh)
-    return fn(xb, dt, a_neg, bmat, cmat, chunk)
+    y, s = fn(xb, dt, a_neg, bmat, cmat, chunk)
+    idle = [i for i, (p, px) in enumerate(zip(pls, xb.placements)) if p != px and p.is_shard(2)]
+    if not idle:
+        return y, s
+    mesh = xb.device_mesh
+    y = y.redistribute(mesh, [px if i in idle else p
+                              for i, (p, px) in enumerate(zip(y.placements, xb.placements))])
+    return y, s.redistribute(mesh, [R if i in idle else p for i, p in enumerate(s.placements)])
 
 
 def ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk: int):

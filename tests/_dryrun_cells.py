@@ -14,16 +14,27 @@ was helped with a rank's single row (``train/step.py::_block_layout``,
 ``distributed/sharding.py``: ``Sharder.layout``, ``grad_in_layout``,
 ``sequence_split_product``); their useful-FLOP fraction is held in
 (0.2, 1.05] too.
+
+``IDLE`` are the "dp" train cells whose microbatches have fewer rows than
+the 16 ranks (the archs with ``TRAIN_ACCUM`` > 1): the rows split over
+"data" only and leave "model" idle. ``check_shares`` holds each of their
+attention score and context products and unembedding products to at most
+1/16 of the product on a whole microbatch, read from the same trace as
+``check_cell``'s record (``traced``: one fake world a cell and process).
 """
 
 from _torch_dist import run_world
-from repro_torch.configs import list_archs
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.launch import sweep
+from repro_torch.launch.dryrun import TRAIN_ACCUM
+from repro_torch.models.layers import padded_vocab
 from test_torch_dryrun import _reference_record_keys
 
 BATCH, SEQ = 16, 64
+DEVICES = 16
 CELL_TIMEOUT_S = 900
 ARCHS = list_archs()
+IDLE = [(a, "dp", "train") for a in ARCHS if TRAIN_ACCUM.get(a, 1) > 1]
 # each arch's train cell under the sweep's scheme, and the two "dp" train
 # cells the reference lowers that the port could not trace
 SWEEP_TRAIN = [(a, sweep.scheme_for(a, "train_4k"), "train") for a in ARCHS]
@@ -54,10 +65,52 @@ def params(cells):
             for c in cells]
 
 
+_TRACED = {}
+
+
+def traced(cell, tmp_path):
+    """The cell's dry-run record and, for an ``IDLE`` cell, its traced
+    step's products by group; traced once a process."""
+    if cell not in _TRACED:
+        if cell in IDLE:
+            out = run_world("dryrun_cell_products", 16, tmp_path, fake=True, cell=list(cell),
+                            batch=BATCH, seq=SEQ, timeout=CELL_TIMEOUT_S)
+        else:
+            rec, = run_world("dryrun_cells", 16, tmp_path, fake=True, cells=[list(cell)],
+                             batch=BATCH, seq=SEQ, timeout=CELL_TIMEOUT_S)
+            out = {"record": rec}
+        _TRACED[cell] = out
+    return _TRACED[cell]
+
+
+def whole_products(arch):
+    """The FLOPs of one self-attention score or context product, one
+    cross-attention one and one unembedding product on a whole microbatch
+    of the reduced ``arch`` (bf16, (BATCH, SEQ), ``TRAIN_ACCUM``)."""
+    cfg = reduced_config(get_config(arch))
+    rows, h, hd = BATCH // TRAIN_ACCUM[arch], cfg.num_heads, cfg.resolved_head_dim
+    out = {"attn": 2 * rows * h * SEQ * SEQ * hd,
+           "unembed": 2 * rows * SEQ * cfg.d_model * padded_vocab(cfg.vocab_size)}
+    if cfg.cross_every:
+        out["cross"] = 2 * rows * h * SEQ * cfg.vision_seq * hd
+    return out
+
+
+def check_shares(cell, tmp_path):
+    """No attention or unembedding product of an ``IDLE`` cell runs above
+    1/16 of its product on a whole microbatch on a device: no "model" rank
+    repeats another's."""
+    products = traced(cell, tmp_path)["products"]
+    for group, whole in whole_products(cell[0]).items():
+        for way in ("fwd", "bwd"):
+            got = products.get(f"{group}/{way}")
+            assert got and got["count"] > 0, (cell, group, way, products)
+            assert got["max"] * DEVICES <= whole, (cell, group, way, got, whole)
+
+
 def check_cell(cell, tmp_path):
     arch, scheme, kind = cell
-    rec, = run_world("dryrun_cells", 16, tmp_path, fake=True, cells=[list(cell)], batch=BATCH,
-                     seq=SEQ, timeout=CELL_TIMEOUT_S)
+    rec = traced(cell, tmp_path)["record"]
     keys = _reference_record_keys()
     assert rec["status"] == "ok" and set(rec) == keys, (cell, rec.get("reason"), set(rec) ^ keys)
     assert rec["devices"] == 16 and rec["scheme"] == scheme

@@ -190,8 +190,8 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     the same ranks and onto (1, 1) in a one-rank world. Returns the losses,
     gradient norms, final parameters, the placements of the first moments
     and of the MoE experts' weights before and after the steps, how many
-    experts a rank's MoE layer served, and the restores' bit-for-bit
-    verdicts."""
+    experts a rank's MoE layer served and on how many heads a rank's causal
+    attention and SSD scan ran, and the restores' bit-for-bit verdicts."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -200,19 +200,32 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     from repro_torch.data.pipeline import ShardedLoader, SyntheticLM
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention as attn
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
     from repro_torch.models import moe
+    from repro_torch.models import ssm
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import step as step_lib
 
-    kernel_calls, local_experts = [], set()
-    experts_of = moe._experts
+    kernel_calls, local_experts, local_heads, local_ssd_heads = [], set(), set(), set()
+    experts_of, causal_of, scan_of = moe._experts, attn.causal_attention, ssm.ssd_chunked
 
     def counted_experts(cfg, router, wi, wo, x, e0):
         local_experts.add(wi.shape[0])  # the experts this rank serves
         return experts_of(cfg, router, wi, wo, x, e0)
-    moe._experts = counted_experts
+
+    def counted_attention(q, k, v):
+        if not hasattr(q, "placements"):  # a rank's local shards
+            local_heads.add(q.shape[2])
+        return causal_of(q, k, v)
+
+    def counted_scan(xb, *args):
+        if not hasattr(xb, "placements"):
+            local_ssd_heads.add(xb.shape[2])
+        return scan_of(xb, *args)
+    moe._experts, attn.causal_attention = counted_experts, counted_attention
+    ssm.ssd_chunked = counted_scan
     if norm_kernel:
         # the RMSNorm kernels' wrapper on each rank's rows (layers._rmsnorm_local); on
         # the CPU it runs the kernel's plain version
@@ -276,7 +289,8 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
         ok11 = same(ckpt.restore(ckpt_dir, steps, like, sh11))
     return {"losses": losses, "grad_norms": gnorms, "params": final, "placements": placements,
             "experts_before": experts_before, "experts_after": experts_after,
-            "local_experts": sorted(local_experts),
+            "local_experts": sorted(local_experts), "local_heads": sorted(local_heads),
+            "local_ssd_heads": sorted(local_ssd_heads),
             "restore_4x1": ok41, "restore_4x1_m": split41, "restore_1x1": ok11,
             "kernel_calls": len(kernel_calls)}
 
@@ -356,6 +370,34 @@ def dryrun_cells(rank, world, cells, batch, seq):
     dr = _reduced_cells(batch, seq)
     return [dr.dryrun_cell(arch, kind, scheme=scheme, verbose=False)
             for arch, scheme, kind in cells]
+
+
+def dryrun_cell_products(rank, world, cell, batch, seq):
+    """``dryrun_cell`` of one reduced cell ([arch, scheme, kind]), as
+    ``dryrun_cells`` runs it, and the matrix products of its traced step by
+    group (``tools/dot_table.py``'s port half): for each group and
+    direction, how many, their FLOPs summed and the largest one's."""
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tools"))
+    import dot_table
+
+    dr = _reduced_cells(batch, seq)
+    arch, scheme, kind = cell
+    lower, graphs = dr._lower_cell, []
+
+    def lowered(*args, **kw):
+        model, graph = lower(*args, **kw)
+        graphs.append(graph)
+        return model, graph
+    dr._lower_cell = lowered
+    with dot_table.stack_traces():
+        rec = dr.dryrun_cell(arch, kind, scheme=scheme, verbose=False)
+    groups = {}
+    for r in dot_table.products(dr.get_config(arch), graphs[0]):
+        g = groups.setdefault(f"{r['group']}/{r['way']}", {"count": 0, "total": 0.0, "max": 0.0})
+        g["count"] += 1
+        g["total"] += r["flops"]
+        g["max"] = max(g["max"], r["flops"])
+    return {"record": rec, "products": groups}
 
 
 def traced_cell(rank, world, arch, scheme, batch, seq):

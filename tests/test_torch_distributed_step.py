@@ -32,7 +32,11 @@ seq 64, whose microbatches of 2 rows split over ``data`` only, so that the
 4 experts' weights stay split over ``model`` for compute (2 experts a rank,
 each rank's row one whole group of 64 tokens): each rank's MoE layer
 serves its 2 experts, and their placements are the same before and after
-the steps.
+the steps. qwen2-0.5b and mamba2-370m (``slow``) run "dp" with ``accum``
+2 as well: their microbatches of 2 rows leave "model" idle too, so there
+each rank runs attention or the SSD scan on its half of the heads, and
+with ``accum`` 1 on all of them (the rows split over both mesh dims); the
+"dp" cases report the heads a rank's causal attention and scan saw.
 """
 
 import numpy as np
@@ -59,6 +63,7 @@ UPDATE_RTOL = 1e-3
 PARAM_TOL = 2e-3
 STEPS, BATCH, SEQ = 2, 4, 16
 LR, WARMUP = 1e-3, 1
+KIND = {"local_heads": "attn", "local_ssd_heads": "ssm"}  # the mixer a report counts
 
 
 def _reference_and_unsharded(arch, accum, seq, tmp_path):
@@ -125,7 +130,9 @@ def _worst_update_error(got, want, init):
     pytest.param("qwen2-0.5b", 1, "sp", SEQ, id="qwen2-0.5b"),
     pytest.param("qwen2-0.5b", 2, "sp", SEQ, id="qwen2-0.5b-accum2"),
     pytest.param("qwen2-0.5b", 1, "dp", SEQ, id="qwen2-0.5b-dp"),
+    pytest.param("qwen2-0.5b", 2, "dp", SEQ, id="qwen2-0.5b-dp-accum2"),
     pytest.param("mamba2-370m", 1, "sp", SEQ, id="mamba2-370m", marks=pytest.mark.slow),
+    pytest.param("mamba2-370m", 2, "dp", SEQ, id="mamba2-370m-dp-accum2", marks=pytest.mark.slow),
     pytest.param("moonshot-v1-16b-a3b", 1, "sp", SEQ, id="moonshot-v1-16b-a3b",
                  marks=pytest.mark.slow),
     pytest.param("moonshot-v1-16b-a3b", 2, "dp", 64, id="moonshot-v1-16b-a3b-dp",
@@ -157,6 +164,16 @@ def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, sche
     assert "Shard" in out["restore_4x1_m"], out["restore_4x1_m"]
     if arch == "qwen2-0.5b":
         assert out["kernel_calls"] > 0
+    if scheme == "dp":
+        # with 2 microbatches a microbatch's rows split over "data" only, and
+        # each rank of the idle "model" dim runs attention and the SSD scan on
+        # its half of the heads; with one, the rows split over both dims and
+        # the heads stay whole
+        cfg = jax_reduced(jax_get_config(arch))
+        for key, h in (("local_heads", cfg.num_heads), ("local_ssd_heads", cfg.ssm_heads)):
+            want = [] if not any(kind == KIND[key] for kind, _ in cfg.pattern()) else \
+                [h // 2 if accum == 2 else h]
+            assert out[key] == want, (key, out[key])
     if arch == "moonshot-v1-16b-a3b" and scheme == "dp":
         # the experts' weights stay split over "model" (mesh dim 1) through the steps
         assert out["experts_after"] == out["experts_before"], out["experts_after"]

@@ -1,0 +1,326 @@
+"""Per-device matrix products of a reduced dry-run train cell, grouped by the
+einsum they come from, for the port and for the JAX reference.
+
+    PYTHONPATH=src python tools/dot_table.py --arch moonshot-v1-16b-a3b \\
+        --scheme dp [--batch 16 --seq 64] [--port-only] [--json out.json]
+
+Both sides trace the reduced config (bf16) at (batch, seq) with the arch's
+``TRAIN_ACCUM`` microbatches on a (4, 4) ``("data", "model")`` mesh, as
+``tests/test_torch_dryrun_cells_dots.py`` does. The groups: the MoE layer's
+router, dispatch, ``wi``, ``wo`` and combine; self-attention's scores and
+context (``attn``, the encoder's too) and cross-attention's (``cross``);
+the SSD scan's products (``ssd``); the unembedding; and the rest (the
+projections and the MLPs).
+
+- the port: one rank's step traced by ``launch.dryrun._lower_cell`` in a
+  fake process group of 16 ranks, in this process; each ``mm``/``bmm``
+  counted as ``analysis.hlo`` counts it (2 x result x contracted). A
+  product is backward where its stack trace passes through
+  ``autograd.grad``. The MoE products are told apart by their operands'
+  dims (the experts' d_ff and 2 d_ff, the capacity, the expert count); a
+  forward product by the functions on its stack (``dot_attention`` under
+  ``apply_cross_attn`` or not, ``ssd_chunked_ref``, ``unembed``); a
+  backward product takes the group of the forward products it shares its
+  dims with (a product's gradients multiply the same three dims, over the
+  same batch), and two such groups raise.
+- the reference: a child process (``XLA_FLAGS`` with 16 host devices,
+  ``JAX_PLATFORMS=cpu``) compiles ``repro.launch.dryrun._lower_cell`` and
+  lists each ``dot`` of the compiled HLO with the product of the trip
+  counts of the loops around it, its FLOPs counted as
+  ``repro.analysis.hlo`` counts them. The einsum and the direction come
+  from the dot's ``op_name`` (``transpose(jvp`` is backward); a dot that
+  lost its ``op_name`` to XLA's rewrites takes those of a dot of the
+  partitioned module (dumped after ``spmd-partitioning``) with the same
+  FLOPs and operand sizes. Self- and cross-attention share their einsums:
+  a self-attention product's two smaller tensors are alike (S x hd twice,
+  beside S x S), a cross-attention product's are not (the memory's length
+  is not the sequence's).
+
+Prints one table: FLOPs per group (forward and backward) on each side, and
+the totals; then the port's collectives a device by kind. ``--port-only``
+skips the reference. This file imports no JAX: the reference runs in the
+child only. ``products(cfg, graph)`` is the port half, for a traced graph
+recorded with ``stack_traces()``.
+"""
+
+import argparse
+import collections
+import contextlib
+import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+
+EINSUMS = {"gsd,de->gse": "router", "gsec,gsd->gecd": "dispatch",
+           "gecd,ednf->gecnf": "wi", "gecf,efd->gecd": "wo",
+           "gecd,gsec->gsd": "combine", "bqhd,bshd->bhqs": "attn",
+           "bhqs,bshd->bqhd": "attn", "bctn,bcsn->bcts": "ssd",
+           "bcts,bctsh,bcshp->bcthp": "ssd", "bcsh,bcsn,bcshp->bchnp": "ssd",
+           "bctn,bchnp->bcthp": "ssd", "...d,dv->...v": "unembed"}
+GROUPS = ("router", "dispatch", "wi", "wo", "combine", "attn", "cross", "ssd", "unembed",
+          "rest")
+
+_REFERENCE = r"""
+import collections, dataclasses, glob, json, os, re, sys
+import numpy as np
+import jax
+from jax.sharding import Mesh
+import repro.launch.dryrun as d
+from repro.analysis import hlo
+from repro.configs import get_config, reduced_config
+from repro.configs.base import ShapeConfig
+from repro.distributed import sharding as shd
+
+arch, scheme, batch, seq, dump = sys.argv[1:6]
+cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+d.get_config = lambda a: cfg
+d.SHAPES = {"train_4k": ShapeConfig("train_4k", int(seq), int(batch), "train")}
+mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"))
+_, lowered = d._lower_cell(arch, "train_4k", mesh, shd.ShardingRules(), scheme=scheme)
+EINSUMS = json.loads(sys.argv[6])
+
+
+def dots(text, loops):
+    m = hlo.HloCostModel(text)
+    out = []
+
+    def walk(comp, mult):
+        env = m._shape_env(comp)
+        for ins in m.computations.get(comp, []):
+            if ins.op == "dot":
+                name = re.search(r'op_name="([^"]*)"', ins.rest)
+                sizes = sorted(hlo._shape_info(s)[0] for s in
+                               (ins.shape, env.get(ins.operands[0], ""),
+                                env.get(ins.operands[1], "")))
+                out.append({"mult": mult, "flops": m._dot_flops(ins, env), "sizes": sizes,
+                            "op_name": name.group(1) if name else ""})
+            elif ins.op == "while":
+                body = re.search(r"body=%?([\w.\-]+)", ins.rest).group(1)
+                walk(body, mult * (m._trip_count(ins.rest) if loops else 1))
+            elif ins.op in ("fusion", "call", "custom-call", "async-start", "conditional"):
+                for n in m._called(ins.rest):
+                    walk(n, mult)
+
+    walk(m.entry, 1)
+    return out
+
+
+def label(op_name, sizes):
+    group = next((g for e, g in EINSUMS.items() if e in op_name), "rest")
+    if group == "attn" and sizes[0] != sizes[1]:
+        group = "cross"
+    return group, "bwd" if "transpose(jvp" in op_name else "fwd"
+
+
+final = dots(lowered.compile().as_text(), loops=True)
+parted, = glob.glob(os.path.join(dump, "*after_spmd-partitioning*.txt"))
+pool = collections.defaultdict(list)
+for p in dots(open(parted).read(), loops=False):
+    if p["op_name"]:
+        pool[(p["flops"], tuple(p["sizes"]))].append(p["op_name"])
+rows = []
+for p in final:
+    name = p["op_name"]
+    if not name:  # rewritten by XLA: a partitioned dot of the same FLOPs and sizes
+        names = pool.get((p["flops"], tuple(p["sizes"])))
+        name = names.pop(0) if names else ""
+    group, way = label(name, p["sizes"])
+    rows.append({"group": group, "way": way, "flops": p["mult"] * p["flops"]})
+print(json.dumps(rows))
+"""
+
+
+def reference_rows(arch, scheme, batch, seq):
+    with tempfile.TemporaryDirectory() as dump:
+        env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+               "XLA_FLAGS": "--xla_force_host_platform_device_count=16 "
+                            f"--xla_dump_to={dump} --xla_dump_hlo_pass_re=spmd-partitioning"}
+        out = subprocess.run([sys.executable, "-c", _REFERENCE, arch, scheme, str(batch),
+                              str(seq), dump, json.dumps(EINSUMS)],
+                             env=env, capture_output=True, text=True, timeout=900)
+    if out.returncode:
+        raise RuntimeError(out.stderr[-3000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _moe_label(cfg, cap, shapes):
+    """The MoE einsum of a port product from its operands' dims, or None:
+    the experts' d_ff (``wo``), 2 d_ff (``wi``), the capacity (a dim a
+    multiple of it: dispatch and combine) and the expert count (the
+    router)."""
+    if not cfg.num_experts:
+        return None
+    dims = {d for s in shapes for d in s[-2:]}
+    moe = any(d % cap == 0 for d in dims)
+    if moe and 2 * cfg.d_ff in dims:
+        return "wi"
+    if moe and cfg.d_ff in dims:
+        return "wo"
+    if cfg.num_experts in dims and cfg.d_model in dims and len(shapes[0]) == 3 \
+            and shapes[0][0] == 1:
+        return "router"
+    return "dispatch/combine" if moe else None
+
+
+_FRAME = re.compile(r", in (\w+)$", re.M)
+
+
+def _stack_label(stack):
+    """The group of a forward product from the functions on its stack."""
+    funcs = set(_FRAME.findall(stack))
+    if "dot_attention" in funcs:
+        return "cross" if funcs & {"apply_cross_attn", "decode_cross_attn"} else "attn"
+    if "ssd_chunked_ref" in funcs:
+        return "ssd"
+    if "unembed" in funcs:
+        return "unembed"
+    return "rest"
+
+
+def _signature(shapes):
+    """A product's batch and its three dims (a gradient of the product
+    multiplies the same ones)."""
+    a, b = shapes[:2]
+    return tuple(a[:-2]), tuple(sorted((a[-2], a[-1], b[-1])))
+
+
+@contextlib.contextmanager
+def stack_traces():
+    """``make_fx`` records each node's whole stack trace inside the scope
+    (the port half reads its groups from the functions on it; by default
+    the tracer keeps only the frames of ``forward`` methods)."""
+    import torch.fx.experimental.proxy_tensor as proxy
+    from torch.fx.proxy import TracerBase
+
+    make_fx, keep = proxy.make_fx, TracerBase._filter_traceback_frames
+    proxy.make_fx = lambda f, *a, **k: make_fx(f, *a, record_stack_traces=True, **k)
+    TracerBase._filter_traceback_frames = lambda self, summary: summary
+    try:
+        yield
+    finally:
+        proxy.make_fx, TracerBase._filter_traceback_frames = make_fx, keep
+
+
+def products(cfg, graph):
+    """Each matrix product of one rank's traced step (recorded under
+    ``stack_traces()``): ``{"group", "way", "flops"}``."""
+    from repro_torch.analysis import hlo
+    from repro_torch.models import moe
+
+    cap = moe.capacity(cfg, cfg.moe_group_size) if cfg.num_experts else None
+    rows, fwd = [], collections.defaultdict(set)
+    for node in graph.graph.nodes:
+        if node.op != "call_function" or hlo.coll_kind(node.target) is not None:
+            continue
+        outs = list(hlo.tensors(node.meta.get("val")))
+        flops = hlo._dot_flops(node.target, node, outs[0]) if outs else None
+        if not flops:
+            continue
+        operands = node.args[1:3] if "add" in str(node.target) else node.args[:2]  # addmm
+        shapes = [tuple(next(hlo.tensors(a.meta["val"])).shape) for a in operands]
+        stack = node.meta.get("stack_trace") or ""
+        way = "bwd" if "autograd.grad" in stack else "fwd"
+        group = _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
+        if group == "dispatch/combine":  # the one-hot products, told apart by what they contract
+            k = shapes[0][-1]
+            if way == "fwd":
+                group = "combine" if k % cap == 0 else "dispatch"
+            else:
+                group = "dispatch" if k % cap == 0 else "combine"
+        elif group is None and way == "fwd":
+            group = _stack_label(stack)
+            fwd[_signature(shapes)].add(group)
+        rows.append({"group": group, "way": way, "flops": flops, "sig": _signature(shapes)})
+    for r in rows:
+        sig = r.pop("sig")
+        if r["group"] is None:
+            seen = fwd.get(sig, {"rest"})
+            if len(seen) > 1:
+                raise ValueError(f"a backward product of dims {sig} matches {sorted(seen)}")
+            r["group"], = seen
+    return rows
+
+
+def port_rows(arch, scheme, batch, seq):
+    """The port's products and its collectives a device by kind."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    import repro_torch.launch.dryrun as dr
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import _mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+    dr.get_config = lambda a: cfg
+    dr.SHAPES = {"train": ShapeConfig("train", seq, batch, "train")}
+    try:
+        with stack_traces():
+            _, graph = dr._lower_cell(arch, "train", _mesh("cpu", (4, 4), ("data", "model")),
+                                      shd.ShardingRules(), scheme=scheme)
+    finally:
+        dist.destroy_process_group()
+    return products(cfg, graph), roofline.collective_stats(graph)
+
+
+def sums(rows):
+    out = collections.Counter()
+    for r in rows:
+        out[(r["group"], r["way"])] += r["flops"]
+    return out
+
+
+def table(port, ref=None):
+    p, r = sums(port), sums(ref or [])
+    head = "| group | way | port FLOPs |"
+    lines = [head + (" reference FLOPs | port - reference |" if ref is not None else ""),
+             "| --- | --- | ---: |" + (" ---: | ---: |" if ref is not None else "")]
+    for g in GROUPS:
+        for w in ("fwd", "bwd"):
+            if (g, w) in p or (g, w) in r:
+                line = f"| {g} | {w} | {int(p[(g, w)]):,} |"
+                if ref is not None:
+                    line += f" {int(r[(g, w)]):,} | {int(p[(g, w)] - r[(g, w)]):+,} |"
+                lines.append(line)
+    tp, tr = sum(p.values()), sum(r.values())
+    lines.append(f"| total | | {int(tp):,} |" + (f" {int(tr):,} | {int(tp - tr):+,} |"
+                                                   if ref is not None else ""))
+    return "\n".join(lines), p, r
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
+    ap.add_argument("--scheme", default="dp")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--port-only", action="store_true", help="skip the reference's compile")
+    ap.add_argument("--json", default=None, help="also write both sides' groups here")
+    args = ap.parse_args(argv)
+    ref = (None if args.port_only else
+           reference_rows(args.arch, args.scheme, args.batch, args.seq))
+    port, colls = port_rows(args.arch, args.scheme, args.batch, args.seq)
+    text, p, r = table(port, ref)
+    print(text)
+    print("port collectives a device: " + ", ".join(
+        f"{k} {v['count']} x, {int(v['bytes']):,} B" for k, v in sorted(colls.items())))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"port": {"/".join(k): v for k, v in p.items()},
+                       "reference": {"/".join(k): v for k, v in r.items()},
+                       "collectives": colls}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
