@@ -82,7 +82,9 @@ def _conv_per_shard(x, w, b):
     (``local_map``): it mixes neighbouring positions of one channel only,
     so the batch and channel splits stay and the sequence is made whole
     (torch 2.11's DTensor cannot plan the redistribution ``F.pad`` asks for
-    at full width on a (16, 16) mesh)."""
+    at full width on a (16, 16) mesh). ``apply_ssm`` hands x's channels
+    over split where the scan's heads are (B's and C's few channels come
+    split over the sequence, which is gathered)."""
     from torch.distributed.tensor import Replicate, Shard
 
     R = Replicate()
@@ -132,30 +134,21 @@ def _per_shard(xb, dt, a_neg, bmat, cmat, chunk: int):
     the heads split (``xb``/``dt`` on dim 2, ``a_neg`` on 0; B and C whole),
     or nothing split; the sequence is made whole. A mesh dim that splits
     neither the rows nor the heads splits the heads where they divide it
-    (``split_idle``), and the output and the state go back to ``xb``'s
-    layout there: the gated norm and the output projection after the scan
-    run on ``xb``'s layout as before."""
+    (``split_idle``; ``apply_ssm`` hands them over split so already). The
+    output and the state keep that layout: the caller takes them back."""
     from torch.distributed.tensor import Replicate, Shard
 
     R = Replicate()
     ins, outs = ([], [], [], [], []), ([], [])
-    pls = split_idle(xb, 2)
-    for p in pls:
+    for p in split_idle(xb, 2):
         d = p.dim % 4 if p.is_shard() else None
         row = ((Shard(0), Shard(0), R, Shard(0), Shard(0)) if d == 0 else
                (Shard(2), Shard(2), Shard(0), R, R) if d == 2 else (R,) * 5)
         out = (Shard(0), Shard(0)) if d == 0 else (Shard(2), Shard(1)) if d == 2 else (R, R)
         for lst, pl in zip(ins + outs, row + out):
             lst.append(pl)
-    fn = local_map(ssd_chunked, outs, ins + (None,), xb.device_mesh)
-    y, s = fn(xb, dt, a_neg, bmat, cmat, chunk)
-    idle = [i for i, (p, px) in enumerate(zip(pls, xb.placements)) if p != px and p.is_shard(2)]
-    if not idle:
-        return y, s
-    mesh = xb.device_mesh
-    y = y.redistribute(mesh, [px if i in idle else p
-                              for i, (p, px) in enumerate(zip(y.placements, xb.placements))])
-    return y, s.redistribute(mesh, [R if i in idle else p for i, p in enumerate(s.placements)])
+    return local_map(ssd_chunked, outs, ins + (None,), xb.device_mesh)(
+        xb, dt, a_neg, bmat, cmat, chunk)
 
 
 def ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk: int):
@@ -214,17 +207,26 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
     b, l, d = x.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv
-    # on a mesh: the projections split over their features keep their
-    # gradients in layout (``grad_in_layout``), and B and C, whose weights
-    # no mesh dim splits, are multiplied on sequence shards
-    z, xi_raw, dt = (grad_in_layout(x @ p[k].to(x.dtype)) for k in ("in_z", "in_x", "in_dt"))
-    bm_raw, cm_raw = (sequence_split_product(x, p[k].to(x.dtype)) for k in ("in_b", "in_c"))
+    # on a mesh, a projection whose weight is whole runs on token shards
+    # (B and C always; z, x, dt and out under "dp"); one whose weight splits
+    # over its features (z, x, dt and out under "sp") keeps its gradient in
+    # layout (``_project``)
+    z, xi_raw, bm_raw, cm_raw, dt_raw = (_project(x, p[k].to(x.dtype))
+                                         for k in ("in_z", "in_x", "in_b", "in_c", "in_dt"))
 
-    xi = F.silu(_causal_conv(xi_raw, p["conv_x"], p["conv_bias_x"]).float()).to(x.dtype)
+    # the conv and the scan run on head shards: a mesh dim that splits the
+    # tokens' sequence but neither rows nor heads (the idle "model" dim
+    # under "dp") splits x's channels and dt's heads instead where the heads
+    # divide it (``split_idle``; d_inner = H*P, so dt's layout splits x by
+    # heads alike), by an all-to-all each; B and C (N channels) are made
+    # whole in the conv
+    heads = split_idle(dt_raw, 2) if hasattr(dt_raw, "placements") else None
+    xi = F.silu(_causal_conv(_laid_out(xi_raw, heads), p["conv_x"],
+                             p["conv_bias_x"]).float()).to(x.dtype)
     bm = F.silu(_causal_conv(bm_raw, p["conv_b"], p["conv_bias_b"]).float()).to(x.dtype)
     cm = F.silu(_causal_conv(cm_raw, p["conv_c"], p["conv_bias_c"]).float()).to(x.dtype)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])  # (B,L,H)
+    dt = F.softplus(_laid_out(dt_raw, heads).float() + p["dt_bias"])  # (B,L,H)
     a_neg = -torch.exp(p["a_log"])  # (H,)
     xh = xi.reshape(b, l, h, pdim)
     xb = (xh.float() * dt[..., None]).to(x.dtype)
@@ -232,10 +234,17 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
     y, s_final = ssd_chunked(xb, dt, a_neg, bm, cm, cfg.ssm_chunk)
     y = y + (p["d_skip"][:, None] * xh.float()).to(x.dtype)
     y = y.reshape(b, l, cfg.d_inner)
+    if hasattr(y, "placements"):
+        # z's splits (the sequence's, from the heads by an all-to-all where
+        # the region split them alone; a partial z keeps y's), and the state
+        # without the region's own split
+        y = _laid_out(y, [pz if pz.is_shard() else py
+                          for py, pz in zip(y.placements, z.placements)])
+        s_final = _laid_out(s_final, _state_layout(s_final, dt_raw))
 
-    # Gated RMSNorm then output projection.
+    # Gated RMSNorm then output projection, per token.
     y = _gated_norm(y, z, p["norm_scale"])
-    out = whole_sequence_grad(y @ p["out"].to(x.dtype))
+    out = whole_sequence_grad(sequence_split_product(y, p["out"].to(x.dtype)))
     if return_cache:
         # copies, so the cache does not hold the whole (B,L,.) projections alive
         cache = {"state": s_final,
@@ -244,6 +253,32 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
                  "conv_c": cm_raw[:, l - (w - 1):, :].clone()}
         return out, cache
     return out, s_final
+
+
+def _project(x, w):
+    """``x @ w``: on token shards where ``w`` is whole
+    (``sequence_split_product``), else with its gradient kept in layout
+    (``grad_in_layout``)."""
+    if all(pl.is_replicate() for pl in getattr(w, "placements", ())):
+        return sequence_split_product(x, w)
+    return grad_in_layout(x @ w)
+
+
+def _state_layout(s, dt):
+    """The final state's (B,H,N,P) layout: its heads split only over the
+    mesh dims that split the projection ``dt``'s."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if pl.is_shard(1) and not pd.is_shard(2) else pl
+            for pl, pd in zip(s.placements, dt.placements)]
+
+
+def _laid_out(t, pls):
+    """The DTensor ``t`` redistributed to ``pls``; as it is where ``pls`` is
+    None or its own."""
+    if pls is None or tuple(t.placements) == tuple(pls):
+        return t
+    return t.redistribute(t.device_mesh, pls)
 
 
 def _gated_norm(y, z, scale, eps: float = 1e-6):

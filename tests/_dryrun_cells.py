@@ -18,9 +18,13 @@ was helped with a rank's single row (``train/step.py::_block_layout``,
 ``IDLE`` are the "dp" train cells whose microbatches have fewer rows than
 the 16 ranks (the archs with ``TRAIN_ACCUM`` > 1): the rows split over
 "data" only and leave "model" idle. ``check_shares`` holds each of their
-attention score and context products and unembedding products to at most
-1/16 of the product on a whole microbatch, read from the same trace as
+attention score and context products, unembedding products and Mamba2
+projections (jamba's ``ssm_proj``) to at most 1/16 of the largest such
+product on a whole microbatch, read from the same trace as
 ``check_cell``'s record (``traced``: one fake world a cell and process).
+The SSD scan's products are left out: its C·Bᵀ (``bctn,bcsn->bcts``) has
+no head dim to split, so it runs at 1/4 on a data rank's row, by design
+(``tests/test_torch_ssm_dp.py`` holds each projection's own share).
 """
 
 from _torch_dist import run_world
@@ -85,21 +89,24 @@ def traced(cell, tmp_path):
 
 def whole_products(arch):
     """The FLOPs of one self-attention score or context product, one
-    cross-attention one and one unembedding product on a whole microbatch
-    of the reduced ``arch`` (bf16, (BATCH, SEQ), ``TRAIN_ACCUM``)."""
+    cross-attention one, one unembedding product and one Mamba2 z, x or out
+    projection (the largest of the block's) on a whole microbatch of the
+    reduced ``arch`` (bf16, (BATCH, SEQ), ``TRAIN_ACCUM``)."""
     cfg = reduced_config(get_config(arch))
     rows, h, hd = BATCH // TRAIN_ACCUM[arch], cfg.num_heads, cfg.resolved_head_dim
     out = {"attn": 2 * rows * h * SEQ * SEQ * hd,
            "unembed": 2 * rows * SEQ * cfg.d_model * padded_vocab(cfg.vocab_size)}
     if cfg.cross_every:
         out["cross"] = 2 * rows * h * SEQ * cfg.vision_seq * hd
+    if any(kind == "ssm" for kind, _ in cfg.pattern()):
+        out["ssm_proj"] = 2 * rows * SEQ * cfg.d_model * cfg.d_inner
     return out
 
 
 def check_shares(cell, tmp_path):
-    """No attention or unembedding product of an ``IDLE`` cell runs above
-    1/16 of its product on a whole microbatch on a device: no "model" rank
-    repeats another's."""
+    """No attention, unembedding or Mamba2 projection product of an
+    ``IDLE`` cell runs above 1/16 of its largest product on a whole
+    microbatch on a device: no "model" rank repeats another's."""
     products = traced(cell, tmp_path)["products"]
     for group, whole in whole_products(cell[0]).items():
         for way in ("fwd", "bwd"):

@@ -450,5 +450,63 @@ def dot_flops_cell(rank, world, arch, scheme, batch, seq):
     return {"dot_flops": total}
 
 
+def ssm_layer_products(rank, world, arch, scheme, rows, seq):
+    """One Mamba2 block of the reduced ``arch`` (bf16) on ``rows`` rows of
+    ``seq`` tokens, forward and backward, traced on one rank of a (4, 4)
+    mesh of a fake world under ``scheme`` as a train step's layer runs it:
+    the residual stream laid out by the "acts" constraint, the pre-norm
+    before the block, the block's weights in the train state's layout made
+    whole for compute by the sharder. Returns the block's matrix products
+    but the scan's (``tools/dot_table.py``'s ``ssm_proj`` group: direction,
+    FLOPs, dims) and the collectives by kind."""
+    import dataclasses
+
+    import torch
+    import torch.fx.experimental.proxy_tensor as proxy
+
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tools"))
+    import dot_table
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models.api import use_impls
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+    mesh = _mesh("cpu", (4, 4), ("data", "model"))
+    sharder = shd.make_sharder(mesh, scheme=scheme)
+    specs = {**ssm.ssm_spec(cfg), "norm": L.norm_spec(cfg)["scale"]}
+    axes = {k: s.axes for k, s in specs.items()}
+    shapes = {k: s.shape for k, s in specs.items()}
+    if scheme == "dp":
+        axes = shd.fsdp_axes(axes, shapes, mesh)
+    layout = shd.tree_shardings(mesh, axes, shapes, shd.scheme_rules(scheme))
+    gen = torch.Generator().manual_seed(0)
+    params = {k: shd.distribute(torch.randn(s.shape, generator=gen).to(s.dtype or torch.bfloat16),
+                                layout[k]) for k, s in specs.items()}
+    shape = (rows, seq, cfg.d_model)
+    resid = shd.distribute(torch.randn(shape, generator=gen).to(torch.bfloat16),
+                           sharder.layout("acts", shape))
+
+    def step(params, resid):
+        leaves = [resid] + list(params.values())
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        w = {k: sharder.whole(v) for k, v in zip(params, leaves[1:])}
+        norm = w.pop("norm")
+        y, _ = ssm.apply_ssm(w, cfg, L.apply_norm({"scale": norm}, leaves[0]))
+        out = shd.constrain(sharder, "acts", leaves[0] + y)
+        return torch.autograd.grad(out.float().square().mean(), leaves)
+
+    fn, args = dryrun._on_local_shards(step, (params, resid))
+    with dot_table.stack_traces(), use_impls(ssd="plain", norm="plain"):
+        graph = proxy.make_fx(fn, tracing_mode="fake")(*args)
+    dryrun._drop_dead(graph)
+    return {"products": [r for r in dot_table.products(cfg, graph) if r["group"] == "ssm_proj"],
+            "collectives": roofline.collective_stats(graph)}
+
+
 if __name__ == "__main__":
     main(sys.argv[1:])

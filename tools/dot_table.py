@@ -9,8 +9,9 @@ Both sides trace the reduced config (bf16) at (batch, seq) with the arch's
 ``tests/test_torch_dryrun_cells_dots.py`` does. The groups: the MoE layer's
 router, dispatch, ``wi``, ``wo`` and combine; self-attention's scores and
 context (``attn``, the encoder's too) and cross-attention's (``cross``);
-the SSD scan's products (``ssd``); the unembedding; and the rest (the
-projections and the MLPs).
+the SSD scan's products (``ssd``); the Mamba2 block's projections
+(``ssm_proj``: z, x, B, C, dt and out); the unembedding; and the rest
+(attention's projections and the MLPs).
 
 - the port: one rank's step traced by ``launch.dryrun._lower_cell`` in a
   fake process group of 16 ranks, in this process; each ``mm``/``bmm``
@@ -19,10 +20,13 @@ projections and the MLPs).
   ``autograd.grad``. The MoE products are told apart by their operands'
   dims (the experts' d_ff and 2 d_ff, the capacity, the expert count); a
   forward product by the functions on its stack (``dot_attention`` under
-  ``apply_cross_attn`` or not, ``ssd_chunked_ref``, ``unembed``); a
-  backward product takes the group of the forward products it shares its
-  dims with (a product's gradients multiply the same three dims, over the
-  same batch), and two such groups raise.
+  ``apply_cross_attn`` or not, ``ssd_chunked_ref``, ``apply_ssm`` without
+  it, ``unembed``); a backward product takes the group of the forward
+  products that read one of its operands (a view of it: a product's
+  gradients read its operands, transposed), or where that is not one
+  group, of those it shares its dims with (a product's gradients multiply
+  the same three dims over the same batch, unless one is laid out anew);
+  a backward product left with two groups raises.
 - the reference: a child process (``XLA_FLAGS`` with 16 host devices,
   ``JAX_PLATFORMS=cpu``) compiles ``repro.launch.dryrun._lower_cell`` and
   lists each ``dot`` of the compiled HLO with the product of the trip
@@ -34,7 +38,8 @@ projections and the MLPs).
   FLOPs and operand sizes. Self- and cross-attention share their einsums:
   a self-attention product's two smaller tensors are alike (S x hd twice,
   beside S x S), a cross-attention product's are not (the memory's length
-  is not the sequence's).
+  is not the sequence's). No name on the reference's dots marks the
+  Mamba2 block's projections, so they count in its "rest".
 
 Prints one table: FLOPs per group (forward and backward) on each side, and
 the totals; then the port's collectives a device by kind. ``--port-only``
@@ -63,8 +68,8 @@ EINSUMS = {"gsd,de->gse": "router", "gsec,gsd->gecd": "dispatch",
            "bhqs,bshd->bqhd": "attn", "bctn,bcsn->bcts": "ssd",
            "bcts,bctsh,bcshp->bcthp": "ssd", "bcsh,bcsn,bcshp->bchnp": "ssd",
            "bctn,bchnp->bcthp": "ssd", "...d,dv->...v": "unembed"}
-GROUPS = ("router", "dispatch", "wi", "wo", "combine", "attn", "cross", "ssd", "unembed",
-          "rest")
+GROUPS = ("router", "dispatch", "wi", "wo", "combine", "attn", "cross", "ssd", "ssm_proj",
+          "unembed", "rest")
 
 _REFERENCE = r"""
 import collections, dataclasses, glob, json, os, re, sys
@@ -178,6 +183,8 @@ def _stack_label(stack):
         return "cross" if funcs & {"apply_cross_attn", "decode_cross_attn"} else "attn"
     if "ssd_chunked_ref" in funcs:
         return "ssd"
+    if "apply_ssm" in funcs:
+        return "ssm_proj"
     if "unembed" in funcs:
         return "unembed"
     return "rest"
@@ -209,12 +216,13 @@ def stack_traces():
 
 def products(cfg, graph):
     """Each matrix product of one rank's traced step (recorded under
-    ``stack_traces()``): ``{"group", "way", "flops"}``."""
+    ``stack_traces()``): ``{"group", "way", "flops", "sig"}``, ``sig`` its
+    batch dims and its three dims, sorted."""
     from repro_torch.analysis import hlo
     from repro_torch.models import moe
 
     cap = moe.capacity(cfg, cfg.moe_group_size) if cfg.num_experts else None
-    rows, fwd = [], collections.defaultdict(set)
+    rows, fwd, by_source = [], collections.defaultdict(set), collections.defaultdict(set)
     for node in graph.graph.nodes:
         if node.op != "call_function" or hlo.coll_kind(node.target) is not None:
             continue
@@ -224,6 +232,7 @@ def products(cfg, graph):
             continue
         operands = node.args[1:3] if "add" in str(node.target) else node.args[:2]  # addmm
         shapes = [tuple(next(hlo.tensors(a.meta["val"])).shape) for a in operands]
+        sources = {_source(a) for a in operands}
         stack = node.meta.get("stack_trace") or ""
         way = "bwd" if "autograd.grad" in stack else "fwd"
         group = _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
@@ -236,15 +245,36 @@ def products(cfg, graph):
         elif group is None and way == "fwd":
             group = _stack_label(stack)
             fwd[_signature(shapes)].add(group)
-        rows.append({"group": group, "way": way, "flops": flops, "sig": _signature(shapes)})
+            for src in sources:
+                by_source[src].add(group)
+        rows.append({"group": group, "way": way, "flops": flops, "sig": _signature(shapes),
+                     "sources": sources})
     for r in rows:
-        sig = r.pop("sig")
+        sig, sources = r["sig"], r.pop("sources")
         if r["group"] is None:
-            seen = fwd.get(sig, {"rest"})
-            if len(seen) > 1:
+            # the group of the forward products that read one of its operands,
+            # else of those with its dims
+            read = set().union(*(by_source[src] for src in sources))
+            seen = read if len(read) == 1 else fwd.get(sig, {"rest"})
+            if len(seen) > 1 and read:
+                seen = seen & read
+            if len(seen) != 1:
                 raise ValueError(f"a backward product of dims {sig} matches {sorted(seen)}")
             r["group"], = seen
     return rows
+
+
+_VIEWS = ("t", "transpose", "permute", "view", "_unsafe_view", "reshape", "expand", "clone",
+          "contiguous", "alias")
+
+
+def _source(node):
+    """The node a product's operand is a view or copy of: a product's
+    gradients read its operands as they are, or transposed."""
+    while (getattr(node, "op", None) == "call_function" and node.args
+           and getattr(node.target, "__name__", "").split(".")[0] in _VIEWS):
+        node = node.args[0]
+    return node
 
 
 def port_rows(arch, scheme, batch, seq):
