@@ -500,12 +500,12 @@ class _WholeGrad(torch.autograd.Function):
 def local_map(fn, out_placements, in_placements, mesh):
     """``fn`` on each rank's local tensors (torch's ``local_map``, inputs
     redistributed to ``in_placements``), with the gradients of a split
-    computation. On a mesh dim where an input is split (``Shard``) or an
-    output is each rank's share of a sum (``Partial``), each rank does a
-    part of the work: the gradient of an input held whole there is the sum
-    of the ranks' parts (``Partial``; torch would take it as whole), and a
-    ``Partial`` output's gradient reaches every rank summed (torch hands
-    each rank its own part of it). An output held whole on such a dim would
+    computation. On a mesh dim where an input or an output is split
+    (``Shard``) or an output is each rank's share of a sum (``Partial``),
+    each rank does a part of the work: the gradient of an input held whole
+    there is the sum of the ranks' parts (``Partial``; torch would take it
+    as whole), and a ``Partial`` output's gradient reaches every rank summed
+    (torch hands each rank its own part of it). An output held whole on such a dim would
     have its gradient counted once a rank, so it is refused: make it
     ``Partial`` with zeros on all ranks but one."""
     from torch.distributed.tensor import Partial, Placement
@@ -515,7 +515,7 @@ def local_map(fn, out_placements, in_placements, mesh):
     outs = [out_placements] if single else list(out_placements)
     split = ({i for pls in in_placements if pls is not None
               for i, p in enumerate(pls) if p.is_shard()}
-             | {i for pls in outs for i, p in enumerate(pls) if p.is_partial()})
+             | {i for pls in outs for i, p in enumerate(pls) if not p.is_replicate()})
     for pls in outs:
         bad = [i for i in split if pls[i].is_replicate()]
         if bad:

@@ -127,6 +127,11 @@ def _norm(p, x, eps: float):
     dt = x.dtype
     xf = x.float()
     if "bias" in p:  # LayerNorm
+        # on a DTensor split over the normalised dim (an untied embedding's
+        # output in prefill and decode) DTensor hands the centred output back
+        # partial, and the products that follow run on whole weights: the dim
+        # is made whole first, as GSPMD gathers it
+        xf = shd.whole_dim(xf, -1)
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)

@@ -124,12 +124,13 @@ class _Layer(nn.Module):
     def _moe_w(self, x):
         """The MoE block's parameters in their compute layout for the tokens
         ``x``: as ``_w``, but ``wi`` and ``wo`` keep an FSDP split of their
-        expert dim over the mesh dims that do not split the rows of ``x``
-        (``moe.expert_split``), so that each rank there serves its own
-        experts, as GSPMD divides the expert products, where a gather would
-        have every rank repeat all of them on the same rows."""
+        expert dim over the mesh dims that do not split the rows of ``x``,
+        so that each rank there serves its own experts, and of d_model where
+        a group spans the ranks that split the rows (``moe.compute_split``),
+        as GSPMD divides the expert products, where a gather would have
+        every rank repeat all of them."""
         sub = self.mlp
-        dims = moe_lib.expert_split(sub["wi"], sub["wo"], x)
+        dims = moe_lib.compute_split(self.cfg, sub["wi"], sub["wo"], x)
         return _whole(self.sharder, sub, {"wi": dims, "wo": dims})
 
     def _norm1(self, x):

@@ -15,6 +15,10 @@ was helped with a rank's single row (``train/step.py::_block_layout``,
 ``sequence_split_product``); their useful-FLOP fraction is held in
 (0.2, 1.05] too.
 
+``dot_flops`` gives a cell's matrix-product FLOPs a device on both sides:
+the port's traced step, and the reference's ``_lower_cell`` compiled for
+16 fake host devices (a child process with ``XLA_FLAGS``).
+
 ``IDLE`` are the "dp" train cells whose microbatches have fewer rows than
 the 16 ranks (the archs with ``TRAIN_ACCUM`` > 1): the rows split over
 "data" only and leave "model" idle. ``check_shares`` holds each of their
@@ -27,12 +31,17 @@ no head dim to split, so it runs at 1/4 on a data rank's row, by design
 (``tests/test_torch_ssm_dp.py`` holds each projection's own share).
 """
 
-from _torch_dist import run_world
+import json
+import os
+import subprocess
+import sys
+
+from _torch_dist import SRC, run_world
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.launch import sweep
 from repro_torch.launch.dryrun import TRAIN_ACCUM
 from repro_torch.models.layers import padded_vocab
-from test_torch_dryrun import _reference_record_keys
+from test_torch_dryrun import _REFERENCE_DOTS, _reference_record_keys
 
 BATCH, SEQ = 16, 64
 DEVICES = 16
@@ -130,3 +139,19 @@ def check_cell(cell, tmp_path):
     if cell in REPAIRED:
         assert 0.2 < rec["useful_flop_fraction"] <= 1.05, rec
     return rec
+
+
+def dot_flops(cell, tmp_path):
+    """(the port's, the reference's) matrix-product FLOPs a device in the
+    reduced ``cell``."""
+    arch, scheme, kind = cell
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=16"}
+    ref = subprocess.run([sys.executable, "-c", _REFERENCE_DOTS, arch, scheme, str(BATCH),
+                          str(SEQ), kind], env=env, capture_output=True, text=True,
+                         timeout=CELL_TIMEOUT_S)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    want = json.loads(ref.stdout.strip().splitlines()[-1])["dot_flops"]
+    got = run_world("dot_flops_cell", 16, tmp_path, fake=True, arch=arch, scheme=scheme,
+                    batch=BATCH, seq=SEQ, kind=kind, timeout=CELL_TIMEOUT_S)["dot_flops"]
+    return got, want

@@ -295,6 +295,80 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
             "kernel_calls": len(kernel_calls)}
 
 
+def serve_inputs(cfg, batch, seq, steps):
+    """A serve run's inputs, drawn with numpy: ``batch`` rows of ``seq +
+    steps`` tokens (the prompt, then one token a decode step) and the
+    config's stub memory (``patches`` or ``frames``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq + steps)).astype(np.int32)}
+    if cfg.cross_every:
+        out["patches"] = rng.standard_normal((batch, cfg.vision_seq, cfg.d_model), np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((batch, cfg.audio_seq, cfg.d_model), np.float32)
+    return out
+
+
+def grown_cache(cache, seq, steps, pad):
+    """A prefill's cache with ``steps`` more slots where its sequence axis
+    is the prompt's (``pad(array, steps)`` pads axis 1 at its end)."""
+    return [{n: pad(a, steps) if n in ("k", "v") and a.shape[1] == seq else a
+             for n, a in c.items()} for c in cache]
+
+
+def sharded_serve(rank, world, arch, npz, batch, seq, steps, data, model_par):
+    """The reduced ``arch`` (weights from ``npz``) served on a (data,
+    model_par) mesh through the engine's sharded path: the parameters laid
+    out by ``param_shardings`` (FSDP over "data" too for the archs the dry
+    run serves so), a prefill of ``serve_inputs``' prompts by
+    ``make_prefill_step``, its cache grown by ``steps`` slots and laid out
+    by ``cache_shardings``, and ``steps`` decode steps of the next tokens
+    by ``make_decode_step``. Returns each step's logits, whole, and how many
+    MoE layer calls took the path where a group spans ranks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.dryrun import FSDP_PARAMS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import engine
+    from repro_torch.train import step as step_lib
+
+    spans, spanning = [], moe._spanning
+    moe._spanning = lambda *a: spans.append(1) or spanning(*a)
+    cfg, params = _model_and_state(arch, npz)
+    mesh = make_host_mesh(data, model_par, device="cpu")
+    model = build_model(cfg, device="cpu", sharder=shd.make_sharder(mesh))
+    model.load_state_dict(params)
+    p_sh = engine.param_shardings(model, mesh, fsdp_params=arch in FSDP_PARAMS)
+    p = {k: shd.distribute(v.detach(), p_sh[k]) for k, v in model.named_parameters()}
+
+    def laid_out(arrays):
+        tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        sh = step_lib.batch_shardings(mesh, tensors)
+        return {k: shd.distribute(v, sh[k]) for k, v in tensors.items()}
+
+    inputs = serve_inputs(cfg, batch, seq, steps)
+    tokens = inputs.pop("tokens")
+    logits, cache = engine.make_prefill_step(model)(p, laid_out({**inputs,
+                                                                 "tokens": tokens[:, :seq]}))
+    out = [logits.full_tensor()]
+    c_sh, _ = engine.cache_shardings(model, mesh, batch, seq + steps)
+    cache = grown_cache([{n: a.full_tensor() for n, a in c.items()} for c in cache], seq,
+                        steps, lambda a, n: F.pad(a, (0, 0, 0, 0, 0, n)))
+    cache = [{n: shd.distribute(a, c_sh[i][n]) for n, a in c.items()}
+             for i, c in enumerate(cache)]
+    decode = engine.make_decode_step(model)
+    for n in range(steps):
+        pos = torch.full((batch,), seq + n, dtype=torch.int32).numpy()
+        step = laid_out({"tokens": tokens[:, seq + n:seq + n + 1], "pos": pos})
+        logits, cache = decode(p, cache, step["tokens"], step["pos"])
+        out.append(logits.full_tensor())
+    return {"logits": [t.tolist() for t in out], "spanning": len(spans)}
+
+
 def fake_trace_checks(rank, world):
     """A collective in a Python loop of 7 and a 4-way column-sharded matmul,
     traced on a fake (1, 4) world."""
@@ -433,14 +507,15 @@ def collectives_cell(rank, world, arch, scheme, batch, seq):
             if n.op == "call_function" and hlo.coll_kind(n.target) is not None]
 
 
-def dot_flops_cell(rank, world, arch, scheme, batch, seq):
-    """One rank's matrix-product FLOPs in a reduced train cell's traced step
-    on a (4, 4) mesh of a fake world."""
+def dot_flops_cell(rank, world, arch, scheme, batch, seq, kind="train"):
+    """One rank's matrix-product FLOPs in a reduced cell's traced step (a
+    train step, or a prefill or decode step for ``kind``) on a (4, 4) mesh
+    of a fake world."""
     from repro_torch.analysis import hlo
     from repro_torch.distributed import sharding as shd
 
     dr = _reduced_cells(batch, seq)
-    _, graph = dr._lower_cell(arch, "train", dr.make_production_mesh(), shd.ShardingRules(),
+    _, graph = dr._lower_cell(arch, kind, dr.make_production_mesh(), shd.ShardingRules(),
                               scheme=scheme)
     total = 0.0
     for node in graph.graph.nodes:

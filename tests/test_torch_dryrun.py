@@ -17,7 +17,8 @@
   JSONL.
 - ``slow``: a reduced cell's per-device matrix-product FLOPs within
   ``DOT_RTOL`` = 5% of the reference's ``_lower_cell`` on 16 fake host
-  devices (a child process with ``XLA_FLAGS``).
+  devices (a child process with ``XLA_FLAGS``; ``_REFERENCE_DOTS`` takes
+  the cell's kind as a fifth argument, train by default).
 """
 
 import json
@@ -166,9 +167,10 @@ from repro.configs.base import ShapeConfig
 from repro.distributed import sharding as shd
 
 arch, scheme, batch, seq = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+kind = sys.argv[5] if len(sys.argv) > 5 else "train"
 cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
 d.get_config = lambda a: cfg
-d.SHAPES = {"train_4k": ShapeConfig("train_4k", seq, batch, "train")}
+d.SHAPES = {"train_4k": ShapeConfig("train_4k", seq, batch, kind)}
 mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"))
 _, lowered = d._lower_cell(arch, "train_4k", mesh, shd.ShardingRules(), scheme=scheme)
 

@@ -1,5 +1,7 @@
-"""Per-device matrix-product FLOPs of the three repaired dry-run cells
-against the reference's (``slow``): jamba-v0.1-52b's train cell under "sp"
+"""Per-device matrix-product FLOPs of the dry-run cells against the
+reference's (``slow``): every one of the 40 reduced cells at most
+1 + ``DOT_RTOL`` times the reference's, and three repaired cells closer:
+jamba-v0.1-52b's train cell under "sp"
 and llama-3.2-vision-90b's and moonshot-v1-16b-a3b's under "dp", reduced,
 batch 16, seq 64, against the reference's ``_lower_cell`` compiled for 16
 fake host devices (a child process with ``XLA_FLAGS``, as
@@ -14,7 +16,7 @@ rank hold the same rows. The port gives each of them a share of every
 product there: the attention heads (``attention._per_shard``), the
 sequence of the projections and the unembedding
 (``sharding.sequence_split_product``), and moonshot's experts
-(``models.moe.expert_split``). Every product then runs 1/16 of the
+(``models.moe.compute_split``). Every product then runs 1/16 of the
 microbatch's product on each device, but moonshot's routing (three
 products at 1/4 on each "model" rank, by design). GSPMD repeats some
 products instead. So each count is held exactly to the reference's, less
@@ -25,22 +27,16 @@ reference's by more than 5%: moonshot 92,536,832 against 271,712,256,
 llama-vision 191,365,120 against 317,194,240.
 """
 
-import json
-import os
-import subprocess
-import sys
-
 import pytest
 
 pytest.importorskip("torch")
 
-from _dryrun_cells import BATCH, CELL_TIMEOUT_S, DEVICES, SEQ  # noqa: E402
-from _torch_dist import SRC, run_world  # noqa: E402
+from _dryrun_cells import ARCHS, BATCH, DEVICES, SEQ, dot_flops  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.launch.dryrun import TRAIN_ACCUM  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
-from test_torch_dryrun import _REFERENCE_DOTS, DOT_RTOL  # noqa: E402
+from test_torch_dryrun import DOT_RTOL  # noqa: E402
 
 DATA = 4  # the (4, 4) mesh: ("data", "model")
 MOONSHOT_DP = ("moonshot-v1-16b-a3b", "dp")
@@ -112,17 +108,27 @@ OFFSETS = {MOONSHOT_DP: _moonshot_dp_offset, VISION_DP: _vision_dp_offset}
 @pytest.mark.slow
 @pytest.mark.parametrize("arch,scheme", [("jamba-v0.1-52b", "sp"), VISION_DP, MOONSHOT_DP])
 def test_repaired_cell_dot_flops_equal_the_references(arch, scheme, tmp_path):
-    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=16"}
-    ref = subprocess.run([sys.executable, "-c", _REFERENCE_DOTS, arch, scheme, str(BATCH),
-                          str(SEQ)], env=env, capture_output=True, text=True, timeout=900)
-    assert ref.returncode == 0, ref.stderr[-3000:]
-    want = json.loads(ref.stdout.strip().splitlines()[-1])["dot_flops"]
-    got = run_world("dot_flops_cell", 16, tmp_path, fake=True, arch=arch, scheme=scheme,
-                    batch=BATCH, seq=SEQ, timeout=CELL_TIMEOUT_S)["dot_flops"]
+    got, want = dot_flops((arch, scheme, "train"), tmp_path)
     if (arch, scheme) in OFFSETS:
         offset = OFFSETS[arch, scheme]()
         assert got == want + offset, (got, want, offset)
         assert got <= (1 + DOT_RTOL) * want, (got, want)
     else:
         assert abs(got - want) / want < DOT_RTOL, (got, want)
+
+
+# all 40 reduced cells: each arch's prefill and decode under "sp" (the scheme
+# ``sweep.scheme_for`` gives every serve cell) and its train cell under "sp"
+# and "dp"
+EVERY_CELL = ([(a, "sp", k) for a in ARCHS for k in ("prefill", "decode")]
+              + [(a, s, "train") for a in ARCHS for s in ("sp", "dp")])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("cell", EVERY_CELL, ids="-".join)
+def test_every_reduced_cell_dot_flops_within_the_references(cell, tmp_path):
+    """No device of any cell multiplies more than 1 + ``DOT_RTOL`` times the
+    reference's count (some run fewer: GSPMD repeats products the port
+    splits, see the "dp" cells above)."""
+    got, want = dot_flops(cell, tmp_path)
+    assert got <= (1 + DOT_RTOL) * want, (cell, got, want)

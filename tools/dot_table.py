@@ -1,14 +1,19 @@
-"""Per-device matrix products of a reduced dry-run train cell, grouped by the
+"""Per-device matrix products of a reduced dry-run cell, grouped by the
 einsum they come from, for the port and for the JAX reference.
 
     PYTHONPATH=src python tools/dot_table.py --arch moonshot-v1-16b-a3b \\
-        --scheme dp [--batch 16 --seq 64] [--port-only] [--json out.json]
+        [--kind train|prefill|decode] [--scheme dp] [--batch 16 --seq 64] \\
+        [--port-only] [--json out.json]
 
-Both sides trace the reduced config (bf16) at (batch, seq) with the arch's
-``TRAIN_ACCUM`` microbatches on a (4, 4) ``("data", "model")`` mesh, as
-``tests/test_torch_dryrun_cells_dots.py`` does. The groups: the MoE layer's
+Both sides trace the reduced config (bf16) at (batch, seq) on a (4, 4)
+``("data", "model")`` mesh, as ``tests/test_torch_dryrun_cells_dots.py``
+does: a train cell (the default) with the arch's ``TRAIN_ACCUM``
+microbatches, under "dp" unless ``--scheme`` says otherwise; a prefill or
+decode cell (a batch of one token against a ``seq`` cache) under "sp", as
+``launch.sweep.scheme_for`` runs every serve cell. The groups: the MoE layer's
 router, dispatch, ``wi``, ``wo`` and combine; self-attention's scores and
-context (``attn``, the encoder's too) and cross-attention's (``cross``);
+context (``attn``, the encoder's and a decode step's grouped ones too) and
+cross-attention's (``cross``);
 the SSD scan's products (``ssd``); the Mamba2 block's projections
 (``ssm_proj``: z, x, B, C, dt and out); the unembedding; and the rest
 (attention's projections and the MLPs).
@@ -18,7 +23,8 @@ the SSD scan's products (``ssd``); the Mamba2 block's projections
   counted as ``analysis.hlo`` counts it (2 x result x contracted). A
   product is backward where its stack trace passes through
   ``autograd.grad``. The MoE products are told apart by their operands'
-  dims (the experts' d_ff and 2 d_ff, the capacity, the expert count); a
+  dims (the experts' d_ff and 2 d_ff, the capacity at the cell's group
+  size, the expert count); a
   forward product by the functions on its stack (``dot_attention`` under
   ``apply_cross_attn`` or not, ``ssd_chunked_ref``, ``apply_ssm`` without
   it, ``unembed``); a backward product takes the group of the forward
@@ -35,10 +41,13 @@ the SSD scan's products (``ssd``); the Mamba2 block's projections
   from the dot's ``op_name`` (``transpose(jvp`` is backward); a dot that
   lost its ``op_name`` to XLA's rewrites takes those of a dot of the
   partitioned module (dumped after ``spmd-partitioning``) with the same
-  FLOPs and operand sizes. Self- and cross-attention share their einsums:
-  a self-attention product's two smaller tensors are alike (S x hd twice,
-  beside S x S), a cross-attention product's are not (the memory's length
-  is not the sequence's). No name on the reference's dots marks the
+  FLOPs and operand sizes. In a config with cross-attention layers, self-
+  and cross-attention share their einsums: a self-attention product's two
+  smaller tensors are alike (S x hd twice, beside S x S), a
+  cross-attention product's are not (the memory's length is not the
+  sequence's; under "sp" a self-attention product whose query is split
+  over the sequence looks the same); a decode step's self-attention has
+  einsums of its own. No name on the reference's dots marks the
   Mamba2 block's projections, so they count in its "rest".
 
 Prints one table: FLOPs per group (forward and backward) on each side, and
@@ -67,7 +76,10 @@ EINSUMS = {"gsd,de->gse": "router", "gsec,gsd->gecd": "dispatch",
            "gecd,gsec->gsd": "combine", "bqhd,bshd->bhqs": "attn",
            "bhqs,bshd->bqhd": "attn", "bctn,bcsn->bcts": "ssd",
            "bcts,bctsh,bcshp->bcthp": "ssd", "bcsh,bcsn,bcshp->bchnp": "ssd",
-           "bctn,bchnp->bcthp": "ssd", "...d,dv->...v": "unembed"}
+           "bctn,bchnp->bcthp": "ssd", "...d,dv->...v": "unembed",
+           "bqkgd,bskd->bkgqs": "attn", "bkgqs,bskd->bqkgd": "attn"}
+DECODE_EINSUMS = ("bqkgd,bskd->bkgqs", "bkgqs,bskd->bqkgd")  # self-attention only
+KINDS = ("train", "prefill", "decode")
 GROUPS = ("router", "dispatch", "wi", "wo", "combine", "attn", "cross", "ssd", "ssm_proj",
           "unembed", "rest")
 
@@ -82,13 +94,13 @@ from repro.configs import get_config, reduced_config
 from repro.configs.base import ShapeConfig
 from repro.distributed import sharding as shd
 
-arch, scheme, batch, seq, dump = sys.argv[1:6]
+arch, scheme, batch, seq, dump, kind = sys.argv[1:7]
 cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
 d.get_config = lambda a: cfg
-d.SHAPES = {"train_4k": ShapeConfig("train_4k", int(seq), int(batch), "train")}
+d.SHAPES = {"train_4k": ShapeConfig("train_4k", int(seq), int(batch), kind)}
 mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"))
 _, lowered = d._lower_cell(arch, "train_4k", mesh, shd.ShardingRules(), scheme=scheme)
-EINSUMS = json.loads(sys.argv[6])
+EINSUMS, DECODE_EINSUMS = json.loads(sys.argv[7])
 
 
 def dots(text, loops):
@@ -116,9 +128,13 @@ def dots(text, loops):
     return out
 
 
+CROSS = any(mixer in ("cross", "attn_cross") for mixer, _ in cfg.pattern())
+
+
 def label(op_name, sizes):
     group = next((g for e, g in EINSUMS.items() if e in op_name), "rest")
-    if group == "attn" and sizes[0] != sizes[1]:
+    if group == "attn" and CROSS and sizes[0] != sizes[1] \
+            and not any(e in op_name for e in DECODE_EINSUMS):
         group = "cross"
     return group, "bwd" if "transpose(jvp" in op_name else "fwd"
 
@@ -141,13 +157,13 @@ print(json.dumps(rows))
 """
 
 
-def reference_rows(arch, scheme, batch, seq):
+def reference_rows(arch, scheme, batch, seq, kind="train"):
     with tempfile.TemporaryDirectory() as dump:
         env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
                "XLA_FLAGS": "--xla_force_host_platform_device_count=16 "
                             f"--xla_dump_to={dump} --xla_dump_hlo_pass_re=spmd-partitioning"}
         out = subprocess.run([sys.executable, "-c", _REFERENCE, arch, scheme, str(batch),
-                              str(seq), dump, json.dumps(EINSUMS)],
+                              str(seq), dump, kind, json.dumps([EINSUMS, DECODE_EINSUMS])],
                              env=env, capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(out.stderr[-3000:])
@@ -162,15 +178,12 @@ def _moe_label(cfg, cap, shapes):
     if not cfg.num_experts:
         return None
     dims = {d for s in shapes for d in s[-2:]}
-    moe = any(d % cap == 0 for d in dims)
-    if moe and 2 * cfg.d_ff in dims:
-        return "wi"
-    if moe and cfg.d_ff in dims:
-        return "wo"
+    if any(d % cap == 0 for d in dims):
+        return "wi" if 2 * cfg.d_ff in dims else "wo" if cfg.d_ff in dims else "dispatch/combine"
     if cfg.num_experts in dims and cfg.d_model in dims and len(shapes[0]) == 3 \
             and shapes[0][0] == 1:
         return "router"
-    return "dispatch/combine" if moe else None
+    return None
 
 
 _FRAME = re.compile(r", in (\w+)$", re.M)
@@ -181,6 +194,8 @@ def _stack_label(stack):
     funcs = set(_FRAME.findall(stack))
     if "dot_attention" in funcs:
         return "cross" if funcs & {"apply_cross_attn", "decode_cross_attn"} else "attn"
+    if "decode_self_attn" in funcs and not funcs & {"_project_q", "_project_kv", "_out_proj"}:
+        return "attn"  # a decode step's grouped scores and context
     if "ssd_chunked_ref" in funcs:
         return "ssd"
     if "apply_ssm" in funcs:
@@ -214,14 +229,29 @@ def stack_traces():
         proxy.make_fx, TracerBase._filter_traceback_frames = make_fx, keep
 
 
-def products(cfg, graph):
+def group_tokens(arch, kind, batch, seq):
+    """The tokens that one MoE group is taken from in a cell: a decode
+    step's batch, a prefill's batch x seq, a train microbatch's rows x seq."""
+    from repro_torch.launch.dryrun import TRAIN_ACCUM
+
+    if kind == "decode":
+        return batch
+    if kind == "prefill":
+        return batch * seq
+    return batch // TRAIN_ACCUM.get(arch, 1) * seq
+
+
+def products(cfg, graph, tokens=None):
     """Each matrix product of one rank's traced step (recorded under
     ``stack_traces()``): ``{"group", "way", "flops", "sig"}``, ``sig`` its
-    batch dims and its three dims, sorted."""
+    batch dims and its three dims, sorted. ``tokens`` are those a MoE group
+    is taken from (``group_tokens``; default a whole group): the capacity
+    that tells the MoE products apart is taken at the group's size."""
     from repro_torch.analysis import hlo
     from repro_torch.models import moe
 
-    cap = moe.capacity(cfg, cfg.moe_group_size) if cfg.num_experts else None
+    gs = min(cfg.moe_group_size, tokens or cfg.moe_group_size)
+    cap = moe.capacity(cfg, gs) if cfg.num_experts else None
     rows, fwd, by_source = [], collections.defaultdict(set), collections.defaultdict(set)
     for node in graph.graph.nodes:
         if node.op != "call_function" or hlo.coll_kind(node.target) is not None:
@@ -277,7 +307,7 @@ def _source(node):
     return node
 
 
-def port_rows(arch, scheme, batch, seq):
+def port_rows(arch, scheme, batch, seq, kind="train"):
     """The port's products and its collectives a device by kind."""
     import torch
     import torch.distributed as dist
@@ -294,14 +324,15 @@ def port_rows(arch, scheme, batch, seq):
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
     cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
     dr.get_config = lambda a: cfg
-    dr.SHAPES = {"train": ShapeConfig("train", seq, batch, "train")}
+    dr.SHAPES = {kind: ShapeConfig(kind, seq, batch, kind)}
     try:
         with stack_traces():
-            _, graph = dr._lower_cell(arch, "train", _mesh("cpu", (4, 4), ("data", "model")),
+            _, graph = dr._lower_cell(arch, kind, _mesh("cpu", (4, 4), ("data", "model")),
                                       shd.ShardingRules(), scheme=scheme)
     finally:
         dist.destroy_process_group()
-    return products(cfg, graph), roofline.collective_stats(graph)
+    return (products(cfg, graph, group_tokens(arch, kind, batch, seq)),
+            roofline.collective_stats(graph))
 
 
 def sums(rows):
@@ -332,15 +363,18 @@ def table(port, ref=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
-    ap.add_argument("--scheme", default="dp")
+    ap.add_argument("--kind", default="train", choices=KINDS)
+    ap.add_argument("--scheme", default=None,
+                    help='default "dp" for a train cell, "sp" for a serve cell')
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--port-only", action="store_true", help="skip the reference's compile")
     ap.add_argument("--json", default=None, help="also write both sides' groups here")
     args = ap.parse_args(argv)
+    scheme = args.scheme or ("dp" if args.kind == "train" else "sp")
     ref = (None if args.port_only else
-           reference_rows(args.arch, args.scheme, args.batch, args.seq))
-    port, colls = port_rows(args.arch, args.scheme, args.batch, args.seq)
+           reference_rows(args.arch, scheme, args.batch, args.seq, args.kind))
+    port, colls = port_rows(args.arch, scheme, args.batch, args.seq, args.kind)
     text, p, r = table(port, ref)
     print(text)
     print("port collectives a device: " + ", ".join(
