@@ -16,7 +16,10 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    ``scaled_dot_product_attention`` times and the card's bound; then the
    main path's call, ``kernels.ops.flash_attention`` on the model layout
    with qwen2's 2 grouped KV heads at (8, 2081, 14, 64), checked and timed
-   beside the (B*H, S, d) call, SDPA and the bound;
+   beside the (B*H, S, d) call, SDPA and the bound; and a rank's block of
+   the queries (``q_offset``, the row split of a 16-rank "model" dim where
+   the heads do not divide it) at that shape, fp32 and bf16, against the
+   plain version's rows of that block;
 3. qwen2-0.5b at full width in fp32 (TF32 off): prefill logits through the
    kernel against the plain path, and prefill -> decode teacher forcing
    against the full forward, both at 2e-3;
@@ -528,7 +531,48 @@ def kernel_phase(torch, F, fa, kops, attention_ref):
                     bhsd = dict(ms=ms, library_ms=lib_ms)
                 del q, k, v, got, want, diff
     check(bhsd is not None, "main-path flash-attention shape was not run")
+    query_block_check(torch, kops, attention_ref)
     return model_layout_main(torch, F, kops, attention_ref, bhsd)
+
+
+def query_block_check(torch, kops, attention_ref, shape=MAIN_SHAPE, kv=MAIN_KV_HEADS,
+                      ranks: int = 16):
+    """The kernel on a rank's block of the queries against whole grouped K/V,
+    as a sharded prefill runs it where the heads do not divide the "model"
+    dim (``causal_attention(q_offset=)``): the first, a middle and the last
+    of ``ranks`` blocks at ``shape``, held against ``attention_ref``'s rows
+    of that block on the whole queries (the plain version without the
+    offset)."""
+    b, s, h, hd = shape
+    n = -(-s // ranks)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
+        k, v = (torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
+                for _ in range(2))
+        flat = [t.transpose(1, 2).reshape(b * h, s, hd)
+                for t in (q, *(t.repeat_interleave(h // kv, dim=2) for t in (k, v)))]
+        whole = attention_ref(*flat, True).reshape(b, h, s, hd).transpose(1, 2)
+        name = str(dtype).replace("torch.", "")
+        tol = TOL[name]
+        for first in (0, (ranks // 2) * n, (ranks - 1) * n):
+            block = q[:, first:first + n].contiguous()
+            got = kops.flash_attention(block, k, v, causal=True, q_offset=first)
+            want = whole[:, first:first + n]
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            check((diff - (tol + tol * want.float().abs())).max().item() <= 0,
+                  f"query block {first}:{first + got.shape[1]} of {shape} {name}: "
+                  f"max abs err {err} over tol {tol}")
+            line = f"query block {first}:{first + got.shape[1]} of {shape} {name} causal " \
+                   f"q_offset={first}: max_abs_err={err:.3e} (tol {tol})"
+            if dtype == torch.bfloat16 and first == (ranks - 1) * n:
+                ms = time_ms(torch, lambda: kops.flash_attention(block, k, v, causal=True,
+                                                                 q_offset=first))
+                line += f" ms={ms:.4f}"
+            print(line)
+        del q, k, v, flat, whole
 
 
 def model_layout_main(torch, F, kops, attention_ref, bhsd, shape=MAIN_SHAPE, kv=MAIN_KV_HEADS):

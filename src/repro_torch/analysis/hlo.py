@@ -167,6 +167,19 @@ def node_cost(node) -> Cost:
     return c
 
 
+def dot_flops(gm: torch.fx.GraphModule) -> float:
+    """The FLOPs of one rank's matrix products and convolutions alone: the
+    count that compares with the dots of the reference's compiled HLO (its
+    total charges the elementwise ops by XLA's fusions, the port's by the
+    eager ops)."""
+    total = 0.0
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and coll_kind(node.target) is None:
+            outs = list(tensors(node.meta.get("val")))
+            total += (_dot_flops(node.target, node, outs[0]) if outs else None) or 0.0
+    return total
+
+
 def analyze_graph(gm: torch.fx.GraphModule) -> Cost:
     """FLOPs, HBM bytes and collective bytes of one rank's traced program."""
     total = Cost()
@@ -175,13 +188,16 @@ def analyze_graph(gm: torch.fx.GraphModule) -> Cost:
     return total
 
 
-def live_bytes(gm: torch.fx.GraphModule) -> Dict[str, float]:
+def live_bytes(gm: torch.fx.GraphModule, top: int = 0) -> Dict[str, float]:
     """Peak live bytes of one rank's program, run op by op in graph order:
     ``argument`` (the placeholders: the state and batch shards, live
     throughout), ``temp`` (the most bytes of op results alive at once: a
     result is allocated at its op and freed after its last use; views
     allocate nothing and keep their base alive), ``output`` (the results
-    returned) and ``peak`` = argument + temp."""
+    returned) and ``peak`` = argument + temp. With ``top``, ``at_peak``
+    lists the ``top`` largest results alive at the peak (``[name, op,
+    shape, bytes, index of the op, index of its last use]``) and
+    ``peak_at`` the index of the op the peak comes at."""
     nodes = list(gm.graph.nodes)
     base = {}  # node -> the node whose storage it uses
     for n in nodes:
@@ -200,14 +216,27 @@ def live_bytes(gm: torch.fx.GraphModule) -> Dict[str, float]:
     output = sum(nbytes(t) for b in returned if b.op != "placeholder"
                  for t in tensors(b.meta.get("val")))
     live = peak = 0
-    frees = {}
+    frees, alive, at_peak = {}, {}, (0, {})
     for i, n in enumerate(nodes):
         if n.op == "call_function" and base[n] is n:
-            live += sum(nbytes(t) for t in tensors(n.meta.get("val")))
+            size = sum(nbytes(t) for t in tensors(n.meta.get("val")))
+            live += size
+            if top:
+                alive[n] = (i, size)
             if n not in returned:
                 frees.setdefault(last.get(n, i), []).append(n)
-        peak = max(peak, live)
+        if live > peak:
+            peak = live
+            if top:
+                at_peak = (i, dict(alive))
         for dead in frees.pop(i, []):
             live -= sum(nbytes(t) for t in tensors(dead.meta.get("val")))
-    return {"argument": float(argument), "temp": float(peak), "output": float(output),
-            "peak": float(argument + peak)}
+            alive.pop(dead, None)
+    out = {"argument": float(argument), "temp": float(peak), "output": float(output),
+           "peak": float(argument + peak)}
+    if top:
+        big = sorted(at_peak[1].items(), key=lambda kv: -kv[1][1])[:top]
+        out["peak_at"] = at_peak[0]
+        out["at_peak"] = [[n.name, str(n.target), [list(t.shape) for t in tensors(n.meta["val"])],
+                           size, i, last.get(n, i)] for n, (i, size) in big]
+    return out

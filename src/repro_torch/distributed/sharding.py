@@ -329,6 +329,15 @@ def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, PartitionSpec())
 
 
+def shard_index(mesh, dims) -> int:
+    """This rank's shard over the mesh dims ``dims`` (indices), major to
+    minor: the order in which DTensor splits a tensor dim over them."""
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    return index
+
+
 def local_part(t, mesh, pls):
     """This rank's part of the whole tensor ``t`` under placements ``pls`` of
     ``mesh``: a view, split as DTensor splits (``torch.chunk``, mesh dims in
@@ -376,6 +385,54 @@ def split_ready(t, dim: int, parts: int):
     if not on or parts % math.prod(t.device_mesh.size(i) for i in on) == 0:
         return t
     return whole_dim(t, dim)
+
+
+class _SplitReadyGrad(torch.autograd.Function):
+    """Identity forward; the gradient made ready (``split_ready``) for the
+    reshape that splits its last dim into ``parts`` groups."""
+
+    @staticmethod
+    def forward(ctx, y, parts):
+        ctx.parts = parts
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return split_ready(dy, -1, ctx.parts), None
+
+
+def split_ready_grad(y, parts: int):
+    """``y``, a merge of ``parts`` groups (heads) into its last dim, whose
+    gradient is made ready for the reshape back into the groups
+    (``split_ready``): the gradient of a projection's input comes back split
+    over the dim as the weight is, where the groups may not split evenly
+    (40 heads over 16 ranks)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(y, DTensor) or not torch.is_grad_enabled():
+        return y
+    return _SplitReadyGrad.apply(y, parts)
+
+
+def split_like_weight(x, w):
+    """``x``, the input of ``x @ w``, split over its last dim wherever ``w``
+    splits its first (the contracted dim) and ``x`` is whole: a local slice
+    on each rank, no collective. DTensor multiplies a whole ``x`` by a split
+    ``w`` as it is, but its backward then takes ``w``'s gradient from the
+    whole ``x`` on every rank of the split and keeps the rank's part: each
+    rank repeats the whole product (an attention context whose heads do not
+    divide the ranks comes back whole)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return x
+    last = x.ndim - 1
+    pls = [Shard(last) if px.is_replicate() and pw.is_shard(0) else px
+           for px, pw in zip(x.placements, w.placements)]
+    n = math.prod(x.device_mesh.size(i) for i, p in enumerate(pls) if p.is_shard(last))
+    if pls == list(x.placements) or x.shape[-1] % n:
+        return x
+    return x.redistribute(x.device_mesh, pls)
 
 
 def whole_sequence(t):
@@ -538,7 +595,7 @@ def local_map(fn, out_placements, in_placements, mesh):
     return run
 
 
-def split_idle(t, dim: int) -> list:
+def split_idle(t, dim: int, spill: Optional[int] = None) -> list:
     """One placement a mesh dim for a per-shard region over the DTensor
     ``t`` that is independent across its rows (dim 0) and its ``dim``
     (heads, channels): ``t``'s split of either is kept and anything else
@@ -547,18 +604,23 @@ def split_idle(t, dim: int) -> list:
     evenly. Each rank of such a dim then runs its share of the region, where
     it would repeat all of it on the rows that every rank of the dim holds
     alike (the model axis under "dp" when a microbatch has fewer rows than
-    there are ranks), as GSPMD divides it. A mesh dim of one rank is left
-    as it is."""
+    there are ranks), as GSPMD divides it. Where ``dim`` does not split
+    evenly over such a mesh dim (14 heads over 16 ranks), ``spill`` (a dim
+    the region is independent across for ``t`` alone, as attention is
+    across its query rows) is split there instead, as long as it splits
+    evenly. A mesh dim of one rank is left as it is."""
     from torch.distributed.tensor import Replicate, Shard
 
-    mesh, size = t.device_mesh, t.shape[dim]
+    mesh = t.device_mesh
     out = [p if p.is_shard() and p.dim % t.ndim in (0, dim) else Replicate()
            for p in t.placements]
-    n = math.prod(mesh.size(i) for i, p in enumerate(out) if p.is_shard(dim))
-    for i, p in enumerate(out):
-        if p.is_replicate() and mesh.size(i) > 1 and size % (n * mesh.size(i)) == 0:
-            out[i] = Shard(dim)
-            n *= mesh.size(i)
+    for d in (dim, spill):
+        if d is None:
+            continue
+        for i, p in enumerate(out):
+            n = math.prod(mesh.size(j) for j, q in enumerate(out) if q.is_shard(d))
+            if p.is_replicate() and mesh.size(i) > 1 and t.shape[d] % (n * mesh.size(i)) == 0:
+                out[i] = Shard(d)
     return out
 
 

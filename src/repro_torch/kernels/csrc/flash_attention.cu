@@ -4,7 +4,8 @@
 // (_attn_kernel, launched by flash_attention_bhsd through pl.pallas_call):
 // blockwise online-softmax attention, scale 1/sqrt(d), fp32 running max,
 // sum and accumulator, causal mask aligned top-left (query i sees keys
-// 0..i), masked scores -1e30, the final sum clamped at 1e-30, output in the
+// 0..i; with q_offset, keys 0..i + q_offset, the queries being a block of
+// the sequence that starts at position q_offset), masked scores -1e30, the final sum clamped at 1e-30, output in the
 // input dtype.
 //
 // Layout. q and o are (B, Sq, H, d) and k, v (B, Sk, KV, d), the model's own
@@ -269,7 +270,7 @@ template <int D>
 __global__ void __launch_bounds__(Geom<D>::kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-               int sq, int sk, int heads, int group, float scale, int causal) {
+               int sq, int sk, int heads, int group, float scale, int causal, int q_offset) {
   using G = Geom<D>;
   static_assert(D % 16 == 0 && D <= 128, "head_dim must be 16, 32, 64 or 128");
   extern __shared__ uint8_t smem_raw[];
@@ -288,7 +289,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   const int q0 = (gridDim.y - 1 - blockIdx.y) * G::kBlockQ;  // heaviest tiles first
   const int q_last = min(q0 + G::kBlockQ, sq) - 1;
   int n_tiles = (sk + kBlockK - 1) / kBlockK;
-  if (causal) n_tiles = min(n_tiles, q_last / kBlockK + 1);
+  if (causal) n_tiles = min(n_tiles, (q_last + q_offset) / kBlockK + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
@@ -374,11 +375,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   // Mask, new running max, P = exp2((S - max) * scale * log2 e) in s, and
   // the rescale factor of the earlier state; touches s, m and l only.
   auto softmax = [&](int k0, float (&alpha)[2]) {
-    if ((k0 + kBlockK > sk) || (causal && k0 + kBlockK - 1 > r0 - g)) {
+    if ((k0 + kBlockK > sk) || (causal && k0 + kBlockK - 1 > r0 - g + q_offset)) {
 #pragma unroll
       for (int i = 0; i < kBlockK / 2; ++i) {  // ragged tail, diagonal
         const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
-        if (key >= sk || (causal && key > rows[(i >> 1) & 1])) s[i] = kNegInf;
+        if (key >= sk || (causal && key > rows[(i >> 1) & 1] + q_offset)) s[i] = kNegInf;
       }
     }
     // A row's 128 scores live in the 4 threads of a quad. Maxima and sums
@@ -516,7 +517,7 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int sq, int sk, int heads,
-              int group, float scale, int causal) {
+              int group, float scale, int causal, int q_offset) {
   constexpr int C = D / 4;  // this thread owns head dims c*4 + t, c < C
   __shared__ float sK[kF32BlockK][D];
   __shared__ float sV[kF32BlockK][D];
@@ -544,7 +545,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q_last = min(q0 + kF32BlockQ, sq) - 1;
   int n_tiles = (sk + kF32BlockK - 1) / kF32BlockK;
-  if (causal) n_tiles = min(n_tiles, q_last / kF32BlockK + 1);
+  if (causal) n_tiles = min(n_tiles, (q_last + q_offset) / kF32BlockK + 1);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kF32BlockK;
@@ -568,7 +569,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       p += __shfl_xor_sync(0xffffffffu, p, 1);  // the quad's four partial dots
       p += __shfl_xor_sync(0xffffffffu, p, 2);
       const int key = k0 + j;
-      if (key >= sk || (causal && key > row)) p = kNegInf;
+      if (key >= sk || (causal && key > row + q_offset)) p = kNegInf;
       s[j] = p;
       mx = fmaxf(mx, p);
     }
@@ -650,7 +651,8 @@ int make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, i
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
-           int heads, int kv_heads, int is_bf16, int causal, float scale, cudaStream_t stream) {
+           int heads, int kv_heads, int is_bf16, int causal, int q_offset, float scale,
+           cudaStream_t stream) {
   const int group = heads / kv_heads;
   if (is_bf16) {
     CUtensorMap mq, mk, mv;
@@ -668,13 +670,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
     }
     dim3 grid(batch * heads, (sq + Geom<D>::kBlockQ - 1) / Geom<D>::kBlockQ);
     flash_fwd_bf16<D><<<grid, Geom<D>::kThreads, smem, stream>>>(
-        mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, heads, group, scale, causal);
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, heads, group, scale, causal,
+        q_offset);
   } else {
     dim3 grid(batch * heads, (sq + kF32BlockQ - 1) / kF32BlockQ);
     flash_fwd_f32<D><<<grid, kF32Threads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, heads, group, scale,
-        causal);
+        causal, q_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -683,18 +686,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 
 // q (batch, sq, heads, d), k/v (batch, sk, kv_heads, d), o like q:
 // contiguous, one dtype (bf16 if is_bf16 else fp32), kv_heads dividing
-// heads, 16-byte aligned. Launches on `stream` and returns the cudaError_t
-// of the launch (0 on success); it does not synchronise.
+// heads, 16-byte aligned; q_offset (>= 0) is the first query's position
+// among the keys under the causal mask. Launches on `stream` and returns the
+// cudaError_t of the launch (0 on success); it does not synchronise.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
                                        int batch, int sq, int sk, int heads, int kv_heads, int d,
-                                       int is_bf16, int causal, float scale, void* stream) {
-  if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads % kv_heads != 0)
+                                       int is_bf16, int causal, int q_offset, float scale,
+                                       void* stream) {
+  if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads % kv_heads != 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
 #define FLASH_CASE(D)                                                                     \
   case D:                                                                                 \
-    return launch<D>(q, k, v, o, batch, sq, sk, heads, kv_heads, is_bf16, causal, scale, st);
+    return launch<D>(q, k, v, o, batch, sq, sk, heads, kv_heads, is_bf16, causal, q_offset, \
+                     scale, st);
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)

@@ -32,7 +32,7 @@ launches = 0
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_forward.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_forward.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -41,7 +41,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("flash_attention.cu", _bind)
 
 
-def _check(q, k, v):
+def _check(q, k, v, q_offset: int = 0):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the flash-attention kernel has no backward; for gradients run "
                            "attention plain with "
@@ -66,17 +66,21 @@ def _check(q, k, v):
         raise ValueError("q, k and v must start on a 16-byte boundary (TMA)")
     if sq < 1 or k.shape[1] < 1 or b < 1 or h < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is negative")
     if sq > MAX_SEQ:
         raise ValueError(f"{sq} queries exceed the grid's y limit of 65535 q-tiles")
 
 
-def flash_attention_bshd(q, k, v, causal: bool = True):
+def flash_attention_bshd(q, k, v, causal: bool = True, q_offset: int = 0):
     """The model layout on the card: q (B, Sq, H, d), k/v (B, Sk, KV, d) with
     KV dividing H (head h reads KV head h // (H // KV)) -> o (B, Sq, H, d)
-    in q's dtype. Nothing is copied: the kernel reads these tensors as they
-    are."""
+    in q's dtype. ``q_offset`` is the first query's position among the keys
+    under the causal mask (query i sees keys 0..i + q_offset): a block of
+    the queries against whole K/V. Nothing is copied: the kernel reads these
+    tensors as they are."""
     global launches
-    _check(q, k, v)
+    _check(q, k, v, q_offset)
     lib = LIBRARY.load()
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
@@ -84,8 +88,8 @@ def flash_attention_bshd(q, k, v, causal: bool = True):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, k.shape[1], h,
-            k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal), 1.0 / math.sqrt(d),
-            stream)
+            k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal), q_offset,
+            1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()} ({err})")
@@ -93,10 +97,10 @@ def flash_attention_bshd(q, k, v, causal: bool = True):
     return o
 
 
-def flash_attention_bhsd(q, k, v, causal: bool = True):
+def flash_attention_bhsd(q, k, v, causal: bool = True, q_offset: int = 0):
     """The reference's layout: q (BH, Sq, d), k/v (BH, Sk, d) on the card ->
     (BH, Sq, d), as ``flash_attention_bshd`` with one head per batch row."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape}, {k.shape}, {v.shape}")
     return flash_attention_bshd(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
-                                causal=causal).squeeze(2)
+                                causal=causal, q_offset=q_offset).squeeze(2)

@@ -16,16 +16,17 @@ from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """Model layout: q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with KV dividing H
-    (grouped K/V, or pre-expanded with KV = H as the reference takes them).
+    (grouped K/V, or pre-expanded with KV = H as the reference takes them);
+    ``q_offset`` is the first query's position under the causal mask.
 
     On the card the kernel reads these tensors as they are: no transpose,
     no copy and no expansion of K/V. On the CPU, K/V are expanded to H
     heads and ``attention_ref`` runs in the (BH, S, hd) layout.
     """
     if q.is_cuda:
-        return fa.flash_attention_bshd(q, k, v, causal=causal)
+        return fa.flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     b, sq, h, hd = q.shape
@@ -34,7 +35,7 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"{kv} KV heads do not divide {h} query heads")
     k, v = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
     qf, kf, vf = (t.transpose(1, 2).reshape(b * h, -1, hd) for t in (q, k, v))
-    o = ref_lib.attention_ref(qf, kf, vf, causal)
+    o = ref_lib.attention_ref(qf, kf, vf, causal, q_offset)
     return o.reshape(b, h, sq, hd).transpose(1, 2)
 
 

@@ -13,7 +13,11 @@ rank's local shapes and every collective DTensor inserts;
 ``analysis.roofline.analyze`` turns it into the reference's roofline
 record. Kernels are pinned plain: no kernel runs on fake tensors. Records
 keep the reference's keys: ``lower_s`` is the trace's time and
-``compile_s`` the graph analysis' (nothing is compiled).
+``compile_s`` the graph analysis' (nothing is compiled). They add
+``dot_flops_per_device``, the FLOPs of the rank's matrix products alone
+(``analysis.hlo.dot_flops``: the count that compares with the dots of the
+reference's compiled HLO), and ``host_rss_gib``, the process's peak
+resident memory after the cell.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
         --shape train_4k --scheme dp --out build/dryrun.jsonl
@@ -30,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.analysis import roofline as rl
 from repro_torch.configs import SHAPES, get_config, list_archs, shape_applicable
 from repro_torch.distributed import sharding as shd
@@ -187,6 +192,13 @@ def _drop_dead(graph) -> None:
     graph.recompile()
 
 
+def _host_rss_gib() -> float:
+    """This process's peak resident memory so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 rules: Optional[shd.ShardingRules] = None,
                 verbose: bool = True, scheme: str = "sp",
@@ -223,6 +235,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "devices": n_dev, "status": "ok", "scheme": scheme,
         "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
         **roof.summary(mflops),
+        "dot_flops_per_device": hlo.dot_flops(graph), "host_rss_gib": _host_rss_gib(),
     }
     if service is not None and shp.kind == "train":
         # the estimate is an optional annotation: never let a predictor
@@ -387,7 +400,9 @@ def main(argv=None) -> int:
                     except Exception as e:  # a failure here is a sharding bug
                         rec = {"arch": arch, "shape": shape_name,
                                "multi_pod": mp, "status": "FAILED",
-                               "error": f"{type(e).__name__}: {e}"}
+                               "error": f"{type(e).__name__}: {e}",
+                               "dot_flops_per_device": None,
+                               "host_rss_gib": _host_rss_gib()}
                         failures += 1
                         print(f"[dryrun] FAILED {arch} x {shape_name} mp={mp}: "
                               f"{rec['error'][:500]}", file=sys.stderr)

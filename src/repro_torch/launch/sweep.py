@@ -7,7 +7,14 @@ growth), appends JSONL records, and skips cells already present — so the
 sweep can be interrupted/resumed freely. Cells are ordered cheapest-first
 to bank results early.
 
-Usage: PYTHONPATH=src python -m repro_torch.launch.sweep --out artifacts/dryrun.jsonl
+Usage: PYTHONPATH=src python -m repro_torch.launch.sweep --out artifacts/dryrun.jsonl \
+    [--meshes single,multi] [--only-arch A]
+
+Each record carries the cell's trace seconds (``lower_s``), its
+matrix-product FLOPs a device (``dot_flops_per_device``) and the cell's
+peak resident memory (``host_rss_gib``). Sweeps of different archs run side
+by side as processes of their own, each with ``--only-arch`` and its own
+``--out``.
 """
 
 from __future__ import annotations

@@ -28,8 +28,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import (constrain, local_map, sequence_split_product,
-                                              split_idle, split_ready, whole_dim,
+from repro_torch.distributed.sharding import (constrain, local_map, reduce_partials,
+                                              sequence_split_product, shard_index, split_idle,
+                                              split_like_weight, split_ready,
+                                              split_ready_grad, whole_dim,
                                               whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
@@ -93,8 +95,10 @@ def _project_kv(p, cfg, src, dtype):
 
 
 def _out_proj(p, ctx, dtype):
-    b, s = ctx.shape[:2]
-    return whole_sequence_grad(sequence_split_product(ctx.reshape(b, s, -1), p["wo"].to(dtype)))
+    b, s, h = ctx.shape[:3]
+    wo = p["wo"].to(dtype)
+    flat = split_like_weight(split_ready_grad(ctx.reshape(b, s, -1), h), wo)
+    return whole_sequence_grad(sequence_split_product(flat, wo))
 
 
 def _expand_kv(k, h: int):
@@ -112,9 +116,12 @@ def _expand_kv(k, h: int):
 
 def _softmax(x):
     # Max-subtracted softmax in x's dtype, written out as the reference's
-    # jax.nn.softmax computes it, so bf16 statistics stay bf16.
-    e = torch.exp(x - x.amax(-1, keepdim=True))
-    return e / e.sum(-1, keepdim=True)
+    # jax.nn.softmax computes it, so bf16 statistics stay bf16. On a DTensor
+    # split over the last dim (a decode step's scores over the cache's
+    # sequence blocks) each statistic is reduced over the ranks where it is
+    # made, and the scores keep their split
+    e = torch.exp(x - reduce_partials(x.amax(-1, keepdim=True)))
+    return e / reduce_partials(e.sum(-1, keepdim=True))
 
 
 def _stat_consts(hd: int, stat: torch.dtype):
@@ -144,8 +151,8 @@ def dot_attention(q, k, v, mask=None):
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
 
-# Above this many query tokens the plain path walks q-blocks, so the S x S
-# score tensor is never materialised (peak: block_q x S per head).
+# Above this many key tokens the plain path walks q-blocks, so the Sq x Sk
+# score tensor is never materialised (peak: block_q x Sk per head).
 CHUNK_THRESHOLD = 4096
 CHUNK_Q = 512
 
@@ -154,7 +161,7 @@ def _use_kernel(q) -> bool:
     return _SWITCH.use_kernel(q)
 
 
-def _per_shard(fn, q, k, v, *rest):
+def _per_shard(fn, q, k, v, *rest, causal: bool = False):
     """``fn(q, k, v, *rest)`` on DTensors, run on each rank's batch and head
     shards (``local_map``): attention is independent across batch rows and
     heads, and DTensor cannot multiply a batch and a head split over two mesh
@@ -162,19 +169,28 @@ def _per_shard(fn, q, k, v, *rest):
     first; the sequence and head dims are made whole. A mesh dim that splits
     neither the rows nor the heads splits the heads where they divide it
     (``split_idle``: the model axis under "dp" for a microbatch of fewer rows
-    than ranks; from q's sequence split an all-to-all), and the context goes
-    back to q's layout there; where they do not, every rank of the dim runs
-    the whole region."""
+    than ranks, or under "sp" where the heads were made whole; from q's
+    sequence split an all-to-all), else the query's sequence against whole
+    K/V (14 heads over 16 ranks), as GSPMD divides both; the region then
+    takes the rank's first query position as ``q_offset`` where ``causal``.
+    The context goes back to q's layout there."""
     from torch.distributed.tensor import Replicate
 
     h, mesh = q.shape[2], q.device_mesh
     k, v = _expand_kv(k, h), _expand_kv(v, h)
-    pls = split_idle(q, 2)
-    ctx = local_map(fn, pls, (pls, pls, pls) + (None,) * len(rest), mesh)(q, k, v, *rest)
-    # where the heads were split for the region alone, the context goes back
-    # to q's layout (from its sequence split, an all-to-all each way)
-    back = [p if p == pq or not p.is_shard(2) else pq if pq.is_shard() else Replicate()
-            for p, pq in zip(pls, q.placements)]
+    pls = split_idle(q, 2, spill=1)
+    rows = [i for i, p in enumerate(pls) if p.is_shard(1)]
+    kv = [Replicate() if p.is_shard(1) else p for p in pls]
+    region = fn
+    if rows and causal:
+        def region(ql, kl, vl, *r):
+            return fn(ql, kl, vl, *r, q_offset=shard_index(mesh, rows) * ql.shape[1])
+    ctx = local_map(region, pls, (pls, kv, kv) + (None,) * len(rest), mesh)(q, k, v, *rest)
+    # where the heads or the queries were split for the region alone, the
+    # context goes back to q's layout (from its sequence split, an all-to-all
+    # each way)
+    back = [p if p == pq or not (p.is_shard(2) or p.is_shard(1)) else
+            pq if pq.is_shard() else Replicate() for p, pq in zip(pls, q.placements)]
     return ctx if back == pls else ctx.redistribute(mesh, back)
 
 
@@ -183,29 +199,31 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def causal_attention(q, k, v):
+def causal_attention(q, k, v, q_offset: int = 0):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) with KV dividing H. The kernel reads
-    grouped K/V as they are; the plain path expands them to H heads first."""
+    grouped K/V as they are; the plain path expands them to H heads first.
+    ``q_offset`` is the first query's position among the keys (a rank's
+    block of the queries, ``_per_shard``)."""
     if _is_dtensor(q):
-        return _per_shard(causal_attention, q, k, v)
+        return _per_shard(causal_attention, q, k, v, causal=True)
     if _use_kernel(q):
         from repro_torch.kernels import ops as kops
-        return kops.flash_attention(q, k, v, causal=True)
+        return kops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     k, v = (_expand_kv(t, q.shape[2]) for t in (k, v))
     sq, sk = q.shape[1], k.shape[1]
-    if sq > CHUNK_THRESHOLD and sq % CHUNK_Q == 0:
-        return _chunked_causal_attention(q, k, v, CHUNK_Q)
+    if sk > CHUNK_THRESHOLD and sq % CHUNK_Q == 0:
+        return _chunked_causal_attention(q, k, v, CHUNK_Q, q_offset)
     mask = (torch.arange(sk, device=q.device)[None, :]
-            <= torch.arange(sq, device=q.device)[:, None])[None, None]
+            <= q_offset + torch.arange(sq, device=q.device)[:, None])[None, None]
     return dot_attention(q, k, v, mask)
 
 
-def _chunked_causal_attention(q, k, v, block_q: int):
-    sq = q.shape[1]
-    cols = torch.arange(sq, device=q.device)[None, :]
+def _chunked_causal_attention(q, k, v, block_q: int, q_offset: int = 0):
+    sq, sk = q.shape[1], k.shape[1]
+    cols = torch.arange(sk, device=q.device)[None, :]
     out = []
     for offs in range(0, sq, block_q):
-        rows = offs + torch.arange(block_q, device=q.device)[:, None]
+        rows = q_offset + offs + torch.arange(block_q, device=q.device)[:, None]
         out.append(dot_attention(q[:, offs:offs + block_q], k, v, (cols <= rows)[None, None]))
     return torch.cat(out, dim=1)
 
@@ -263,9 +281,8 @@ def decode_self_attn(p, cfg, x_t, cache, pos, shard=None):
     k_t = _apply_rope(cfg, k_t, pos[:, None])
     smax = cache["k"].shape[1]
     ar = torch.arange(smax, device=x_t.device)
-    sel = (ar == pos[0])[None, :, None, None]
-    k = torch.where(sel, k_t.to(cache["k"].dtype)[:, :1], cache["k"])
-    v = torch.where(sel, v_t.to(cache["v"].dtype)[:, :1], cache["v"])
+    k = _cache_write(cache["k"], k_t, pos)
+    v = _cache_write(cache["v"], v_t, pos)
     mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
     b = q.shape[0]
     h, kv, hd = _heads(cfg)
@@ -275,12 +292,67 @@ def decode_self_attn(p, cfg, x_t, cache, pos, shard=None):
     q5 = whole_dim(q, 2).reshape(b, 1, kv, h // kv, hd)
     stat = torch.float32 if q.dtype == torch.float32 else q.dtype
     scale, neg = _stat_consts(hd, stat)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k.to(q.dtype)).to(stat)
+    scores = _cache_product("bqkgd,bskd->bkgqs", q5, k.to(q.dtype)).to(stat)
     scores = constrain(shard, "decode_scores5", scores) * scale
     probs = _softmax(torch.where(mask, scores, neg)).to(q.dtype)
-    ctx = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype))
+    ctx = _cache_product("bkgqs,bskd->bqkgd", probs, v.to(q.dtype))
     ctx = ctx.reshape(b, 1, h, hd)
     return _out_proj(p, ctx, x_t.dtype), {"k": k, "v": v}
+
+
+def _write(cache, new, pos, first: int = 0):
+    """``new``'s first position written into ``cache`` at ``pos[0]``
+    (``first``: the cache's first position held)."""
+    ar = first + torch.arange(cache.shape[1], device=cache.device)
+    sel = (ar == pos[0])[None, :, None, None]
+    return torch.where(sel, new.to(cache.dtype)[:, :1], cache)
+
+
+def _cache_write(cache, new, pos):
+    """The decode step's masked write into the cache (B, S, KV, hd). On a
+    DTensor each rank writes its own rows and block of the sequence
+    (``local_map``), and the cache keeps its layout: DTensor's own select
+    may gather the cache's sequence to meet the one new position (2 GiB a
+    layer on moonshot-v1-16b-a3b's decode cell), and then every rank of the
+    sequence split runs all of the cache's products."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not _is_dtensor(cache):
+        return _write(cache, new, pos)
+    mesh = cache.device_mesh
+    pls = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in cache.placements]
+    seq = [i for i, p in enumerate(pls) if p.is_shard(1)]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
+
+    def write(c, n, ps):
+        return _write(c, n, ps, shard_index(mesh, seq) * c.shape[1])
+
+    whole = [Replicate()] * mesh.ndim
+    return local_map(write, pls, (pls, rows, whole), mesh)(cache, new, pos)
+
+
+def _cache_product(eq: str, a, kv):
+    """``einsum(eq, a, kv)`` of a decode step's grouped scores (``a`` the
+    query) or context (``a`` the probabilities) with the cache's K or V
+    (B, S, KV, hd). On DTensors it runs on each rank's rows and its block of
+    the cache's sequence (``local_map``: the flash-decoding split GSPMD
+    makes), the scores split over the sequence there and the context a sum
+    over those ranks: DTensor's own einsum may move the cache's split to its
+    KV heads (16 of them over 16 ranks) and then refuse to merge them with
+    the batch for the product."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not _is_dtensor(kv):
+        return torch.einsum(eq, a, kv)
+    pls = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in kv.placements]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
+    seq = [Shard(0) if p.is_shard(0) else Shard(4) if p.is_shard(1) else Replicate()
+           for p in pls]
+    scores = eq.endswith("qs")
+    outs = seq if scores else [Partial() if p.is_shard(1) else r for p, r in zip(pls, rows)]
+    y = local_map(lambda al, kl: torch.einsum(eq, al, kl), outs,
+                  (rows if scores else seq, pls), kv.device_mesh)(a, kv)
+    return y if scores else reduce_partials(y)
 
 
 def decode_cross_attn(p, cfg, x_t, cache):

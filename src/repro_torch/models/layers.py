@@ -60,14 +60,16 @@ def norm_spec(cfg, d=None):
     return {"scale": spec((d,), ("embed",), "ones", dtype=torch.float32)}
 
 
-def _rmsnorm_local(x, gain, eps: float):
+def _rmsnorm_local(x, gain, eps: float, keep_features: bool = False):
     """The RMSNorm kernels on a DTensor: each rank runs them on its own rows
     (any count of them, even or not: the whole shape is carried over). A
     sharded or partial normalised dim, and the gain, are made whole first;
     the gain's gradient is then the sum of the ranks' parts over the mesh
     dims that split the rows. A row dim so short that a rank would hold
     none of it (the kernels launch on one row or more) is made whole, with
-    a warning."""
+    a warning. With ``keep_features`` the output takes x's split of the
+    normalised dim back (each rank keeps its columns: no collective), as
+    the plain path leaves it (``_features_made_whole``)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     from repro_torch.kernels import ops as kops
@@ -86,6 +88,8 @@ def _rmsnorm_local(x, gain, eps: float):
     if short:
         warnings.warn(f"RMSNorm of {tuple(x.shape)} {tuple(x.placements)}: rows made whole "
                       f"on every rank, a split would leave a rank none", stacklevel=2)
+    features = [p if p.is_shard() and p.dim % x.ndim == last else r
+                for p, r in zip(x.placements, rows)]
     if list(x.placements) != rows:
         x = x.redistribute(mesh, rows)
     if isinstance(gain, DTensor):
@@ -95,7 +99,8 @@ def _rmsnorm_local(x, gain, eps: float):
         gain = gain.to_local(grad_placements=[Partial() if p.is_shard() else Replicate()
                                               for p in rows])
     y = kops.rmsnorm(x.to_local(grad_placements=rows), gain, eps)
-    return DTensor.from_local(y, mesh, rows, run_check=False, shape=x.shape, stride=x.stride())
+    y = DTensor.from_local(y, mesh, rows, run_check=False, shape=x.shape, stride=x.stride())
+    return y.redistribute(mesh, features) if keep_features and features != rows else y
 
 
 def _split_on(t, dim: int) -> bool:
@@ -104,6 +109,27 @@ def _split_on(t, dim: int) -> bool:
 
     return isinstance(t, DTensor) and any(p.is_shard() and p.dim % t.ndim == dim % t.ndim
                                           for p in t.placements)
+
+
+def _features_made_whole(p, x) -> bool:
+    """Whether a norm makes the split of ``x``'s normalised dim whole, on
+    either path, before the projections that follow; else its output keeps
+    the split. LayerNorm always: DTensor hands its centred output back
+    partial. RMSNorm of (B, S, D) where S splits evenly over the ranks that
+    split D: the projections then split their rows over those ranks
+    (``sharding.sequence_split_product``), and a D-split input would meet
+    weights split on the same mesh dim, where DTensor gathers the weights
+    and leaves the products partial. Where S does not split over them (a
+    decode step's one token) the projections contract their share of D,
+    as GSPMD partitions them, and a whole input would repeat them on every
+    rank of those dims."""
+    if "bias" in p:
+        return True
+    if x.ndim != 3 or not _split_on(x, -1):
+        return False
+    n = math.prod(x.device_mesh.size(i) for i, pl in enumerate(x.placements)
+                  if pl.is_shard(x.ndim - 1))
+    return x.shape[1] % n == 0
 
 
 def apply_norm(p, x, eps: float = 1e-6):
@@ -117,21 +143,22 @@ def apply_norm(p, x, eps: float = 1e-6):
 
 
 def _norm(p, x, eps: float):
+    # on a DTensor split over the normalised dim (an untied embedding's
+    # output in prefill and decode) the layout of the output is decided
+    # first, the same on both paths (``_features_made_whole``)
+    whole = _features_made_whole(p, x)
     if "bias" not in p and _use_kernel(x):
         from torch.distributed.tensor import DTensor
 
         if isinstance(x, DTensor):
-            return _rmsnorm_local(x, p["scale"], eps)
+            return _rmsnorm_local(x, p["scale"], eps, keep_features=not whole)
         from repro_torch.kernels import ops as kops
         return kops.rmsnorm(x, p["scale"], eps)
     dt = x.dtype
     xf = x.float()
-    if "bias" in p:  # LayerNorm
-        # on a DTensor split over the normalised dim (an untied embedding's
-        # output in prefill and decode) DTensor hands the centred output back
-        # partial, and the products that follow run on whole weights: the dim
-        # is made whole first, as GSPMD gathers it
+    if whole:
         xf = shd.whole_dim(xf, -1)
+    if "bias" in p:  # LayerNorm
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
@@ -253,10 +280,7 @@ def _vocab_parallel_lookup(tokens, table):
     out_pl = tuple(Partial() if i in dims else p for i, p in enumerate(tok_pl))
 
     def lookup(tok, tab):
-        shard = 0
-        for i in dims:  # the rank's vocab shard, major to minor
-            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
-        idx = tok - shard * tab.shape[0]
+        idx = tok - shd.shard_index(mesh, dims) * tab.shape[0]
         mine = (idx >= 0) & (idx < tab.shape[0])
         rows = F.embedding(torch.where(mine, idx, 0), tab)
         return rows * mine[..., None].to(rows.dtype)
@@ -282,16 +306,28 @@ def unembed(p, x, softcap: float = 0.0, vocab: int = 0):
 
 
 def _gold(logits, labels):
-    """The label's logit. On a DTensor, the one-hot masked sum: it keeps the
-    batch and vocab shards where they are (each rank reduces over its own
-    columns), where DTensor gathers the whole batch for ``gather``; it adds
-    one logit to zeros, so it equals the gather bit for bit."""
-    from torch.distributed.tensor import DTensor
+    """The label's logit. On a DTensor, the one-hot masked sum on each rank's
+    own rows and columns (``local_map``; a sum over the ranks of a vocab
+    split): DTensor gathers the whole batch for ``gather``, and given the
+    whole vocab's columns it may gather the logits' vocab to meet them (a
+    (8, 4096, 163840) fp32 tensor on moonshot-v1-16b-a3b's train cell). It
+    adds one logit to zeros, so it equals the gather bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    if isinstance(logits, DTensor):
-        cols = torch.arange(logits.shape[-1], device=logits.device)
-        return torch.where(labels[..., None] == cols, logits, 0.0).sum(-1)
-    return torch.gather(logits, -1, labels[..., None])[..., 0]
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    logits = shd.reduce_partials(logits)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(last)]
+    lab_pl = [Replicate() if i in vocab else p for i, p in enumerate(logits.placements)]
+    out_pl = [Partial() if i in vocab else p for i, p in enumerate(logits.placements)]
+
+    def gold(lg, lab):
+        first = shd.shard_index(mesh, vocab) * lg.shape[-1]
+        cols = first + torch.arange(lg.shape[-1], device=lg.device)
+        return torch.where(lab[..., None] == cols, lg, 0.0).sum(-1)
+
+    return shd.local_map(gold, out_pl, (list(logits.placements), lab_pl), mesh)(logits, labels)
 
 
 def _gathered(t):
@@ -307,9 +343,26 @@ def _gathered(t):
     return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
+def _logsumexp(logits):
+    """``logsumexp`` over the vocab. On a DTensor split over the vocab it is
+    written out (max, then the sum of exponentials), so each rank reduces
+    its own columns and only the (..., 1) statistics are reduced across
+    ranks, as GSPMD partitions it; DTensor's own ``logsumexp`` makes the
+    vocab whole on every rank first (4 rows x 4096 x 128256 fp32 logits,
+    8 GiB, on llama-3.2-vision-90b's train cell)."""
+    if not _split_on(logits, -1):
+        return torch.logsumexp(logits, dim=-1)
+    # each statistic is reduced where it is made: DTensor left to itself
+    # may scatter a partial one over the sequence and move the logits (and
+    # their gradient) to a sequence split to meet it
+    m = shd.reduce_partials(logits.amax(-1, keepdim=True)).detach()
+    total = shd.reduce_partials(torch.exp(logits - m).sum(-1, keepdim=True))
+    return (m + torch.log(total))[..., 0]
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in fp32. logits (..., V), labels (...) int."""
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     gold = _gold(logits, labels.long())
     nll = _gathered(lse - gold)
     if mask is None:

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (constrain, local_map, reduce_partials,
-                                              split_idle, whole_sequence_grad)
+                                              shard_index, split_idle, whole_sequence_grad)
 from repro_torch.models.module import spec
 
 AUX_LOSS_WEIGHT = 0.01
@@ -210,14 +210,6 @@ def compute_split(cfg, wi, wo, x):
     return experts + (kept if n % gs == 0 or gs % n == 0 else ())
 
 
-def _rank_shard(mesh, dims) -> int:
-    """This rank's shard over the mesh dims ``dims``, major to minor."""
-    shard = 0
-    for i in dims:
-        shard = shard * mesh.size(i) + mesh.get_local_rank(i)
-    return shard
-
-
 def _window(first: int, n: int, gs: int):
     """(groups, positions): the slices that hold the tokens ``first`` to
     ``first + n`` of groups of ``gs``, which lie in one group or make whole
@@ -254,7 +246,7 @@ def _per_shard(p, cfg, x):
         w_pl.append(Shard(0) if i in experts else whole)
 
     def local(router, wi, wo, xl):
-        shard = _rank_shard(mesh, experts)
+        shard = shard_index(mesh, experts)
         y, *stats = _experts(cfg, router, wi, wo, xl, shard * wi.shape[0])
         # every expert shard routes alike: the first one's statistics count
         return (y, *(t * float(shard == 0) for t in stats))
@@ -323,8 +315,8 @@ def _spanning(p, cfg, x, experts, split):
         groups."""
         _, disp, comb = _slots(cfg, vals, idx, gs)
         n = b // math.prod(mesh.size(i) for i in by) * s
-        groups, at = _window(_rank_shard(mesh, by) * n, n, gs)
-        first = _rank_shard(mesh, experts) * local_e
+        groups, at = _window(shard_index(mesh, by) * n, n, gs)
+        first = shard_index(mesh, experts) * local_e
         return (disp if vals is None else comb)[groups, at, first:first + local_e], groups
 
     def dispatch(idx, xl):

@@ -20,8 +20,10 @@ Mixers: ``attn`` (causal self-attention), ``ssm`` (Mamba2 SSD), ``cross``
 (self-attention, then cross-attention to the encoder's output); MLPs:
 ``none``, ``dense``, ``moe`` and ``moe_dense`` (MoE plus a parallel dense
 branch). An encoder-decoder config runs ``encoder_layers`` non-causal
-layers over the batch's stub ``frames`` first, as the reference writes it,
-whether or not a decoder layer reads their output. The decode cache is a
+layers over the batch's stub ``frames`` first where a decoder layer reads
+their output (``attn_cross``): the reference writes the encoder into every
+step, and XLA drops it from the compiled step where no layer reads it
+(whisper-tiny's pattern holds no ``attn_cross``). The decode cache is a
 list with one dict per layer: ``{"k", "v"}`` for attention (for ``cross``
 sized to the memory), plus ``{"xk", "xv"}`` for ``attn_cross``, and
 ``{"state", "conv_x", "conv_b", "conv_c"}`` for SSD (the state in fp32).
@@ -450,6 +452,11 @@ class StackModel(nn.Module):
 
     def _memory_of(self, batch):
         if self.cfg.is_encoder_decoder:
+            # the encoder runs only where a layer reads its output (an
+            # ``attn_cross`` layer): the reference writes it in every step,
+            # and XLA drops it where no layer reads it
+            if not any(mixer == "attn_cross" for mixer, _ in self.pattern):
+                return None
             return self._encode(batch["frames"])
         if self.cfg.cross_every:
             return batch["patches"].to(self.dtype)

@@ -79,12 +79,16 @@ def make_train_step(model, opt_cfg: opt_lib.OptConfig, accum: int = 1):
     def _compute_grads(params, batch):
         if accum <= 1:
             return grad_fn(params, batch)
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()}
+        # the sum starts from the first microbatch's share (the reference
+        # adds it to zeros: the same values), so it takes the gradients'
+        # layout on a mesh, where zeros made here would be whole parameters
+        # on every rank
+        acc = None
         for i in range(accum):
             loss, _, grads = grad_fn(params, {k: _microbatch(v, i, accum)
                                               for k, v in batch.items()})
-            acc = {k: a + grads[k].float() / accum for k, a in acc.items()}
+            share = {k: g.float() / accum for k, g in grads.items()}
+            acc = share if acc is None else {k: a + share[k] for k, a in acc.items()}
         return loss, {"loss": loss}, acc  # the last microbatch's loss, as the reference
 
     @torch.no_grad()

@@ -6,7 +6,8 @@ A cell is (arch, scheme, kind) at batch 16, seq 64, bf16, with the arch's
 ``TRAIN_ACCUM`` microbatches for a train cell (``_torch_dist.dryrun_cells``).
 ``check_cell`` holds its record to what
 ``test_dryrun_cells_of_reduced_cells_on_a_fake_4x4_world`` holds its cells
-to: status ``ok`` with the reference's record keys, 16 devices, the
+to: status ``ok`` with the reference's record keys and the port's two
+(``PORT_KEYS``), 16 devices, the
 scheme, a peak at least the arguments, a bottleneck, and for a train cell
 a gradient all-reduce or reduce-scatter. ``REPAIRED`` are the cells the
 port could not trace before microbatches were laid out evenly and DTensor
@@ -41,7 +42,7 @@ from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.launch import sweep
 from repro_torch.launch.dryrun import TRAIN_ACCUM
 from repro_torch.models.layers import padded_vocab
-from test_torch_dryrun import _REFERENCE_DOTS, _reference_record_keys
+from test_torch_dryrun import _REFERENCE_DOTS, PORT_KEYS, _reference_record_keys
 
 BATCH, SEQ = 16, 64
 DEVICES = 16
@@ -127,7 +128,7 @@ def check_shares(cell, tmp_path):
 def check_cell(cell, tmp_path):
     arch, scheme, kind = cell
     rec = traced(cell, tmp_path)["record"]
-    keys = _reference_record_keys()
+    keys = _reference_record_keys() | PORT_KEYS
     assert rec["status"] == "ok" and set(rec) == keys, (cell, rec.get("reason"), set(rec) ^ keys)
     assert rec["devices"] == 16 and rec["scheme"] == scheme
     assert rec["peak_hbm_gib"] >= rec["argument_gib"] > 0

@@ -147,6 +147,44 @@ def rmsnorm_rows(rank, world):
     return out
 
 
+def norm_layouts(rank, world):
+    """RMSNorm of x (2, S, 8) split over rows ("data") and features
+    ("model") on a (2, 2) mesh, through the plain path and the kernels'
+    wrapper (its plain version on the CPU), for a decode step's one token
+    (S 1) and a prefill's four (S 4): each path's output placements, and
+    the output and x's gradient against plain ``rmsnorm_ref`` on the whole
+    tensors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ref as ref_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+
+    mesh = make_host_mesh(2, 2, device="cpu")
+    rng = np.random.default_rng(1)
+    gain = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    out = {}
+    for s in (1, 4):
+        x = torch.from_numpy(rng.standard_normal((2, s, 8)).astype(np.float32))
+        dy = torch.from_numpy(rng.standard_normal((2, s, 8)).astype(np.float32))
+        xr = x.clone().requires_grad_()
+        yr = ref_lib.rmsnorm_ref(xr, gain, 1e-6)
+        (yr * dy).sum().backward()
+        for kernel in (False, True):
+            L._use_kernel = lambda t, k=kernel: k
+            split = shd.NamedSharding(mesh, shd.P("data", None, "model"))
+            xd = shd.distribute(x, split).requires_grad_()
+            y = L._norm({"scale": shd.distribute(gain, shd.replicated(mesh))}, xd, 1e-6)
+            (y * shd.distribute(dy, split)).sum().backward()
+            out[f"{s} {'kernel' if kernel else 'plain'}"] = {
+                "placements": [str(p) for p in y.placements],
+                "y": float((y.full_tensor() - yr).abs().max()),
+                "dx": float((xd.grad.full_tensor() - xr.grad).abs().max())}
+    return out
+
+
 def compressed_allreduce(rank, world, seed):
     """The mean of every rank's compressed gradients: w (16, 8) from
     ``seed + rank`` and b (8,) from ``seed + 100 + rank``, normal x 0.1; in
@@ -165,7 +203,7 @@ def compressed_allreduce(rank, world, seed):
     return {k: mean[k].tolist() for k in mean}
 
 
-def _model_and_state(arch, npz, dtype="float32"):
+def _model_and_state(arch, npz, dtype="float32", heads=None):
     import dataclasses
 
     import numpy as np
@@ -176,13 +214,15 @@ def _model_and_state(arch, npz, dtype="float32"):
     from repro_torch.models.module import params_from_jax
 
     cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype)
+    if heads:  # query heads over one KV head (a count that need not divide the mesh)
+        cfg = dataclasses.replace(cfg, num_heads=heads, num_kv_heads=1)
     with np.load(npz) as z:
         flat = {k.replace("|", "/"): z[k] for k in z.files}
     return cfg, params_from_jax(cfg, flat)
 
 
 def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, model_par,
-                  lr, warmup_steps, accum=1, norm_kernel=False, scheme="sp"):
+                  lr, warmup_steps, accum=1, norm_kernel=False, scheme="sp", heads=None):
     """``steps`` sharded train steps of the reduced ``arch`` (weights from
     ``npz``; AdamW at ``lr`` after ``warmup_steps``, ``accum`` microbatches)
     on a (data, model_par) mesh with ZeRO-1, laid out by the sharding
@@ -191,7 +231,9 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     gradient norms, final parameters, the placements of the first moments
     and of the MoE experts' weights before and after the steps, how many
     experts a rank's MoE layer served and on how many heads a rank's causal
-    attention and SSD scan ran, and the restores' bit-for-bit verdicts."""
+    attention and SSD scan ran (and on how many query rows), and the
+    restores' bit-for-bit verdicts. ``heads`` sets the query heads (over one
+    KV head)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -209,16 +251,18 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     from repro_torch.train import step as step_lib
 
     kernel_calls, local_experts, local_heads, local_ssd_heads = [], set(), set(), set()
+    local_rows = set()
     experts_of, causal_of, scan_of = moe._experts, attn.causal_attention, ssm.ssd_chunked
 
     def counted_experts(cfg, router, wi, wo, x, e0):
         local_experts.add(wi.shape[0])  # the experts this rank serves
         return experts_of(cfg, router, wi, wo, x, e0)
 
-    def counted_attention(q, k, v):
+    def counted_attention(q, k, v, **kw):
         if not hasattr(q, "placements"):  # a rank's local shards
             local_heads.add(q.shape[2])
-        return causal_of(q, k, v)
+            local_rows.add(q.shape[1])
+        return causal_of(q, k, v, **kw)
 
     def counted_scan(xb, *args):
         if not hasattr(xb, "placements"):
@@ -234,7 +278,7 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
         L._use_kernel = lambda x: True
         kops.rmsnorm = lambda *a: kernel_calls.append(1) or real(*a)
 
-    cfg, params = _model_and_state(arch, npz)
+    cfg, params = _model_and_state(arch, npz, heads=heads)
     mesh = make_host_mesh(data, model_par, device="cpu")
     model = build_model(cfg, device="cpu", sharder=shd.make_sharder(mesh, scheme=scheme))
     model.load_state_dict(params)
@@ -290,6 +334,7 @@ def sharded_steps(rank, world, arch, npz, ckpt_dir, steps, batch, seq, data, mod
     return {"losses": losses, "grad_norms": gnorms, "params": final, "placements": placements,
             "experts_before": experts_before, "experts_after": experts_after,
             "local_experts": sorted(local_experts), "local_heads": sorted(local_heads),
+            "local_rows": sorted(local_rows),
             "local_ssd_heads": sorted(local_ssd_heads),
             "restore_4x1": ok41, "restore_4x1_m": split41, "restore_1x1": ok11,
             "kernel_calls": len(kernel_calls)}
@@ -517,12 +562,7 @@ def dot_flops_cell(rank, world, arch, scheme, batch, seq, kind="train"):
     dr = _reduced_cells(batch, seq)
     _, graph = dr._lower_cell(arch, kind, dr.make_production_mesh(), shd.ShardingRules(),
                               scheme=scheme)
-    total = 0.0
-    for node in graph.graph.nodes:
-        if node.op == "call_function" and hlo.coll_kind(node.target) is None:
-            outs = list(hlo.tensors(node.meta.get("val")))
-            total += (hlo._dot_flops(node.target, node, outs[0]) if outs else None) or 0.0
-    return {"dot_flops": total}
+    return {"dot_flops": hlo.dot_flops(graph)}
 
 
 def ssm_layer_products(rank, world, arch, scheme, rows, seq):

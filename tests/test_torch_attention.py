@@ -105,7 +105,8 @@ def test_apply_self_attn_through_kernel_wrapper(dtype, monkeypatch):
     real = kops.flash_attention
     monkeypatch.setattr(TA, "_use_kernel", lambda q: True)
     monkeypatch.setattr(kops, "flash_attention",
-                        lambda q, k, v, causal=True: seen.append(k.shape) or real(q, k, v, causal))
+                        lambda q, k, v, causal=True, q_offset=0:
+                        seen.append(k.shape) or real(q, k, v, causal, q_offset))
     yt, _ = TA.apply_self_attn(pt, torch_cfg(cfg), x[1], torch.from_numpy(pos))
     assert seen == [(2, 13, cfg.num_kv_heads, cfg.resolved_head_dim)]
     impl = JA.get_attention_impl()
@@ -115,6 +116,23 @@ def test_apply_self_attn_through_kernel_wrapper(dtype, monkeypatch):
     finally:
         JA.set_attention_impl(impl)
     close(yt, yj, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("first,n", [(0, 7), (7, 7), (14, 7), (5, 16)])
+def test_causal_attention_query_block(dtype, kernel, first, n, monkeypatch):
+    # a rank's block of the queries (q_offset = its first position) against
+    # whole grouped K/V, through the plain path or the kernel wrapper (the
+    # kernel's plain version on the CPU): the reference's whole causal
+    # attention's rows of that block
+    q = both(randn(45, (2, 21, 6, 16)), dtype)
+    k, v = (both(randn(s, (2, 21, 2, 16)), dtype) for s in (46, 47))
+    monkeypatch.setattr(TA, "_use_kernel", lambda q: kernel)
+    got = TA.causal_attention(q[1][:, first:first + n], k[1], v[1], q_offset=first)
+    want = JA.causal_attention(q[0], jnp.repeat(k[0], 3, axis=2), jnp.repeat(v[0], 3, axis=2))
+    assert got.shape == (2, min(n, 21 - first), 6, 16)
+    close(got, want[:, first:first + n], TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -247,6 +247,28 @@ def test_model_layout_gqa_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, h
                                atol=KTOL[dtype], rtol=KTOL[dtype])
 
 
+@pytest.mark.parametrize("b,s,n,first,h,kv,hd", [
+    (1, 2048, 128, 1920, 14, 2, 64),  # qwen2-0.5b's 14 heads, one of 16 query blocks
+    (2, 1000, 250, 250, 6, 6, 64), (1, 700, 300, 400, 8, 4, 128), (2, 300, 1, 299, 4, 2, 16),
+    (1, 257, 100, 57, 4, 1, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_block_kernel_matches_plain_on_card(cuda, b, s, n, first, h, kv, hd, dtype):
+    # a block of n queries from position ``first`` (q_offset) against whole
+    # K/V: the plain version's rows of that block, run on every query
+    q = _randn(14, (b, s, h, hd)).to(cuda).to(getattr(torch, dtype))
+    k, v = (_randn(sd, (b, s, kv, hd)).to(cuda).to(q.dtype) for sd in (15, 16))
+    block = q[:, first:first + n].contiguous()
+    before = fa.launches
+    got = fa.flash_attention_bshd(block, k, v, causal=True, q_offset=first)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == block.shape
+    flat = [t.transpose(1, 2).reshape(b * h, -1, hd) for t in (q, _expand(k, h), _expand(v, h))]
+    want = attention_ref(*flat, True).reshape(b, h, s, hd).transpose(1, 2)[:, first:first + n]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=KTOL[dtype], rtol=KTOL[dtype])
+
+
 def test_gqa_wrapper_makes_no_copies_on_card(cuda):
     # the model-layout wrapper launches the kernel once and issues no other op
     q = _randn(1, (2, 64, 14, 64)).to(cuda).bfloat16()

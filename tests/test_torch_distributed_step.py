@@ -39,7 +39,16 @@ half of the heads (mamba2-370m's projections, conv and gated norm on its
 half of the sequence or of the channels), and with ``accum`` 1 on all of
 them (the rows split over both mesh dims); the "dp" cases report the heads
 a rank's causal attention and scan saw.
+
+qwen2-0.5b with 3 query heads over one KV head (``heads``), which do not
+divide the 2 ranks of "model": under "sp" (tier-1, ~30 s) and under "dp"
+with ``accum`` 2 (``slow``) each rank of "model" runs causal attention on
+all 3 heads and its half of the queries against whole K/V, from its first
+query's position (``attention._per_shard``), and the context comes back
+to q's layout; its gradients reach K/V summed over the ranks.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -68,11 +77,18 @@ LR, WARMUP = 1e-3, 1
 KIND = {"local_heads": "attn", "local_ssd_heads": "ssm"}  # the mixer a report counts
 
 
-def _reference_and_unsharded(arch, accum, seq, tmp_path):
+def _config(arch, heads=None):
+    """The reduced ``arch``; with ``heads``, that many query heads over one
+    KV head."""
+    cfg = jax_reduced(jax_get_config(arch))
+    return dataclasses.replace(cfg, num_heads=heads, num_kv_heads=1) if heads else cfg
+
+
+def _reference_and_unsharded(arch, accum, seq, tmp_path, heads=None):
     """The JAX init written for the world; the initial parameters; and the
     losses, gradient norms and final parameters of the reference's and the
     port's unsharded steps."""
-    cfg = jax_reduced(jax_get_config(arch))
+    cfg = _config(arch, heads)
     jm = jax_build(cfg)
     params = jm.init(jax.random.key(0))
     npz = str(tmp_path / "weights.npz")
@@ -128,26 +144,29 @@ def _worst_update_error(got, want, init):
     return worst, at
 
 
-@pytest.mark.parametrize("arch,accum,scheme,seq", [
-    pytest.param("qwen2-0.5b", 1, "sp", SEQ, id="qwen2-0.5b"),
-    pytest.param("qwen2-0.5b", 2, "sp", SEQ, id="qwen2-0.5b-accum2"),
-    pytest.param("qwen2-0.5b", 1, "dp", SEQ, id="qwen2-0.5b-dp"),
-    pytest.param("qwen2-0.5b", 2, "dp", SEQ, id="qwen2-0.5b-dp-accum2"),
-    pytest.param("mamba2-370m", 1, "sp", SEQ, id="mamba2-370m", marks=pytest.mark.slow),
-    pytest.param("mamba2-370m", 2, "dp", SEQ, id="mamba2-370m-dp-accum2"),
-    pytest.param("moonshot-v1-16b-a3b", 1, "sp", SEQ, id="moonshot-v1-16b-a3b",
+@pytest.mark.parametrize("arch,accum,scheme,seq,heads", [
+    pytest.param("qwen2-0.5b", 1, "sp", SEQ, None, id="qwen2-0.5b"),
+    pytest.param("qwen2-0.5b", 2, "sp", SEQ, None, id="qwen2-0.5b-accum2"),
+    pytest.param("qwen2-0.5b", 1, "dp", SEQ, None, id="qwen2-0.5b-dp"),
+    pytest.param("qwen2-0.5b", 2, "dp", SEQ, None, id="qwen2-0.5b-dp-accum2"),
+    pytest.param("qwen2-0.5b", 1, "sp", SEQ, 3, id="qwen2-0.5b-3heads"),
+    pytest.param("qwen2-0.5b", 2, "dp", SEQ, 3, id="qwen2-0.5b-3heads-dp-accum2",
                  marks=pytest.mark.slow),
-    pytest.param("moonshot-v1-16b-a3b", 2, "dp", 64, id="moonshot-v1-16b-a3b-dp",
+    pytest.param("mamba2-370m", 1, "sp", SEQ, None, id="mamba2-370m", marks=pytest.mark.slow),
+    pytest.param("mamba2-370m", 2, "dp", SEQ, None, id="mamba2-370m-dp-accum2"),
+    pytest.param("moonshot-v1-16b-a3b", 1, "sp", SEQ, None, id="moonshot-v1-16b-a3b",
+                 marks=pytest.mark.slow),
+    pytest.param("moonshot-v1-16b-a3b", 2, "dp", 64, None, id="moonshot-v1-16b-a3b-dp",
                  marks=pytest.mark.slow),
 ])
 def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, scheme, seq,
-                                                               tmp_path):
+                                                               heads, tmp_path):
     npz, init, ref, mine, params, ref_params = _reference_and_unsharded(arch, accum, seq,
-                                                                        tmp_path)
+                                                                        tmp_path, heads)
     out = run_world("sharded_steps", 4, tmp_path, timeout=180 if arch != "qwen2-0.5b" else 120,
                     arch=arch, npz=npz, ckpt_dir=str(tmp_path / "ck"), steps=STEPS,
                     batch=BATCH, seq=seq, data=2, model_par=2, lr=LR, warmup_steps=WARMUP,
-                    accum=accum, norm_kernel=arch == "qwen2-0.5b", scheme=scheme)
+                    accum=accum, norm_kernel=arch == "qwen2-0.5b", scheme=scheme, heads=heads)
     got = list(zip(out["losses"], out["grad_norms"]))
     np.testing.assert_allclose(got, mine, rtol=LOSS_RTOL, atol=0)
     np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL, atol=0)
@@ -166,7 +185,12 @@ def test_sharded_steps_equal_the_unsharded_and_reference_steps(arch, accum, sche
     assert "Shard" in out["restore_4x1_m"], out["restore_4x1_m"]
     if arch == "qwen2-0.5b":
         assert out["kernel_calls"] > 0
-    if scheme == "dp":
+    if heads:
+        # 3 heads do not divide the 2 ranks of "model", which attention's rows
+        # leave idle ("sp": the heads made whole; "dp" with 2 microbatches):
+        # each rank of it runs all the heads on its half of the queries
+        assert out["local_heads"] == [heads] and out["local_rows"] == [seq // 2], out
+    elif scheme == "dp":
         # with 2 microbatches a microbatch's rows split over "data" only, and
         # each rank of the idle "model" dim runs attention and the SSD scan on
         # its half of the heads; with one, the rows split over both dims and

@@ -44,6 +44,10 @@ from repro_torch.launch import sweep  # noqa: E402
 DOT_RTOL = 0.05
 GRAD_AR_MAX = 1.5
 BATCH, SEQ = 16, 64
+# the seven reduced cells trace one after another in one process: ~45 s
+# alone, several times that beside the suite's other workers (the one-cell
+# worlds of ``_dryrun_cells`` allow the same)
+CELLS_TIMEOUT_S = 900
 
 
 def test_graph_analyzer_chained_matmul_flops_exact():
@@ -80,6 +84,11 @@ def _reference_record_keys():
             "compile_s", *roof.summary(1.0)}
 
 
+# what the port's records add: the matrix products' FLOPs a device, the
+# count that compares with the reference's dots, and the host's peak memory
+PORT_KEYS = {"dot_flops_per_device", "host_rss_gib"}
+
+
 CELLS = [["qwen2-0.5b", "dp", "train"], ["qwen2-0.5b", "sp", "train"],
          ["mamba2-370m", "dp", "train"], ["moonshot-v1-16b-a3b", "sp", "train"],
          ["qwen2-0.5b", "sp", "prefill"], ["mamba2-370m", "sp", "prefill"],
@@ -87,10 +96,13 @@ CELLS = [["qwen2-0.5b", "dp", "train"], ["qwen2-0.5b", "sp", "train"],
 
 
 def test_dryrun_cells_of_reduced_cells_on_a_fake_4x4_world(tmp_path):
-    recs = run_world("dryrun_cells", 16, tmp_path, fake=True, cells=CELLS, batch=BATCH, seq=SEQ)
-    keys = _reference_record_keys()
+    recs = run_world("dryrun_cells", 16, tmp_path, fake=True, cells=CELLS, batch=BATCH, seq=SEQ,
+                     timeout=CELLS_TIMEOUT_S)
+    keys = _reference_record_keys() | PORT_KEYS
     for (arch, scheme, kind), rec in zip(CELLS, recs):
         assert rec["status"] == "ok" and set(rec) == keys, (arch, set(rec) ^ keys)
+        assert 0 < rec["dot_flops_per_device"] <= rec["flops_per_device"], rec
+        assert rec["host_rss_gib"] > 0
         assert rec["devices"] == 16 and rec["scheme"] == scheme
         assert rec["peak_hbm_gib"] >= rec["argument_gib"] > 0
         assert rec["bottleneck"] in ("compute", "memory", "collective")

@@ -45,6 +45,29 @@ def test_attention_ref_matches_reference_oracle(sq, sk, causal):
           jref.attention_ref(q[0], k[0], v[0], causal), 1e-5)
 
 
+@pytest.mark.parametrize("first,n", [(0, 20), (17, 20), (30, 7), (36, 1)])
+def test_attention_ref_query_block_matches_reference_oracle(first, n):
+    # a block of the queries with q_offset: the reference oracle's rows of
+    # that block, the whole queries against the same keys
+    q = both(randn(24, (3, 37, 16)))
+    k, v = (both(randn(seed, (3, 37, 16))) for seed in (25, 26))
+    close(tref.attention_ref(q[1][:, first:first + n], k[1], v[1], True, first),
+          jref.attention_ref(q[0], k[0], v[0], True)[:, first:first + n], 1e-5)
+
+
+@pytest.mark.parametrize("first,n", [(0, 10), (10, 10), (30, 10)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_wrapper_query_block_matches_pallas_interpret(first, n, dtype):
+    # the wrapper's q_offset on grouped K/V: the reference kernel's rows of
+    # the block, run on the whole queries in interpret mode
+    q = both(randn(27, (2, 40, 6, 32)), dtype)
+    k, v = (both(randn(seed, (2, 40, 2, 32)), dtype) for seed in (28, 29))
+    kj, vj = (jnp.repeat(t[0], 3, axis=2) for t in (k, v))
+    want = jops.flash_attention(q[0], kj, vj, causal=True, interpret=True)
+    got = tops.flash_attention(q[1][:, first:first + n], k[1], v[1], causal=True, q_offset=first)
+    close(got, want[:, first:first + n], KTOL[dtype])
+
+
 @pytest.mark.parametrize("b,s,h,kv,hd", [(2, 37, 6, 2, 32), (1, 40, 4, 1, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -74,7 +97,8 @@ def test_wrapper_hands_model_layout_to_kernel_unchanged(monkeypatch):
     # to the kernel as they are: the same storage and strides, no copy
     seen = []
     monkeypatch.setattr(tops.fa, "flash_attention_bshd",
-                        lambda q, k, v, causal=True: seen.append((q, k, v, causal)) or q)
+                        lambda q, k, v, causal=True, q_offset=0:
+                        seen.append((q, k, v, causal, q_offset)) or q)
     q = torch.zeros(2, 9, 14, 64, dtype=torch.bfloat16).as_subclass(_OnCard)
     k, v = (torch.zeros(2, 9, 2, 64, dtype=torch.bfloat16).as_subclass(_OnCard)
             for _ in range(2))
@@ -83,4 +107,4 @@ def test_wrapper_hands_model_layout_to_kernel_unchanged(monkeypatch):
     for got, given in zip(seen[0][:3], (q, k, v)):
         assert got is given
         assert got.data_ptr() == given.data_ptr() and got.stride() == given.stride()
-    assert seen[0][3] is True
+    assert seen[0][3] is True and seen[0][4] == 0

@@ -282,3 +282,18 @@ def test_rmsnorm_kernel_runs_on_each_ranks_rows_with_the_gain_gradient_summed(tm
         assert r["warned"] == (0 if split else 1), (n, r)
         assert max(r["y"], r["dx"], r["dgain"]) <= NORM_TOL, (n, r)
     assert out["refused"] is True
+
+
+def test_rmsnorm_layout_is_the_same_through_the_kernel_and_plain(tmp_path):
+    """A gloo world of (2, 2): RMSNorm of x split over rows and features
+    leaves the same layout through the kernels' wrapper as through the plain
+    path: a decode step's one token keeps its feature split (the projections
+    contract their share of it), a prefill's four tokens make the features
+    whole; the output and x's gradient equal plain RMSNorm's within
+    ``NORM_TOL``."""
+    out = run_world("norm_layouts", 4, tmp_path)
+    for s, want in (("1", ["S(0)", "S(2)"]), ("4", ["S(0)", "R"])):
+        for path in ("plain", "kernel"):
+            r = out[f"{s} {path}"]
+            assert r["placements"] == want, (s, path, r)
+            assert max(r["y"], r["dx"]) <= NORM_TOL, (s, path, r)

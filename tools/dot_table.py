@@ -1,11 +1,25 @@
-"""Per-device matrix products of a reduced dry-run cell, grouped by the
-einsum they come from, for the port and for the JAX reference.
+"""Per-device matrix products of a dry-run cell, grouped by the einsum
+they come from, for the port and for the JAX reference.
 
     PYTHONPATH=src python tools/dot_table.py --arch moonshot-v1-16b-a3b \\
         [--kind train|prefill|decode] [--scheme dp] [--batch 16 --seq 64] \\
-        [--port-only] [--json out.json]
+        [--port-only | --reference-only] [--json out.json]
+    PYTHONPATH=src python tools/dot_table.py --arch qwen2-0.5b \\
+        --shape prefill_32k [--multi-pod] [--layers 1] [...]
 
-Both sides trace the reduced config (bf16) at (batch, seq) on a (4, 4)
+With ``--shape`` the cell is the full-size one the sweep traces
+(``launch.sweep``): the config at full width (cut to ``--layers`` where
+given, as ``dataclasses.replace(cfg, num_layers=...)``), the shape's batch
+and sequence, the production mesh of 256 ranks, 512 with ``--multi-pod``,
+and ``sweep.scheme_for``'s scheme; both sides also give the cell's live
+bytes a device (``argument_gib``, ``temp_gib``, ``peak_hbm_gib``: the
+reference's ``memory_analysis``, the port's ``analysis.hlo.live_bytes``).
+The reference lowers a full cell in seconds (its layers are one scanned
+body); the port traces each layer, so at full depth it takes the sweep's
+minutes and memory (``--port-only`` or ``--reference-only`` runs one side).
+
+Without ``--shape`` both sides trace the reduced config (bf16) at (batch,
+seq) on a (4, 4)
 ``("data", "model")`` mesh, as ``tests/test_torch_dryrun_cells_dots.py``
 does: a train cell (the default) with the arch's ``TRAIN_ACCUM``
 microbatches, under "dp" unless ``--scheme`` says otherwise; a prefill or
@@ -33,7 +47,8 @@ the SSD scan's products (``ssd``); the Mamba2 block's projections
   group, of those it shares its dims with (a product's gradients multiply
   the same three dims over the same batch, unless one is laid out anew);
   a backward product left with two groups raises.
-- the reference: a child process (``XLA_FLAGS`` with 16 host devices,
+- the reference: a child process (``XLA_FLAGS`` with 16 host devices, 512
+  at full size,
   ``JAX_PLATFORMS=cpu``) compiles ``repro.launch.dryrun._lower_cell`` and
   lists each ``dot`` of the compiled HLO with the product of the trip
   counts of the loops around it, its FLOPs counted as
@@ -64,9 +79,11 @@ import dataclasses
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
@@ -90,17 +107,28 @@ import jax
 from jax.sharding import Mesh
 import repro.launch.dryrun as d
 from repro.analysis import hlo
+from repro.analysis import roofline as rl
 from repro.configs import get_config, reduced_config
 from repro.configs.base import ShapeConfig
 from repro.distributed import sharding as shd
 
-arch, scheme, batch, seq, dump, kind = sys.argv[1:7]
-cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+cell, dump = json.loads(sys.argv[1]), sys.argv[2]
+EINSUMS, DECODE_EINSUMS = json.loads(sys.argv[3])
+arch, scheme = cell["arch"], cell["scheme"]
+if cell["shape"]:  # full size: the sweep's cell on the production mesh
+    from repro.launch.mesh import make_production_mesh
+    cfg = get_config(arch)
+    shape = cell["shape"]
+    mesh = make_production_mesh(multi_pod=cell["multi_pod"])
+else:
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+    shape = "train_4k"
+    d.SHAPES = {shape: ShapeConfig(shape, cell["seq"], cell["batch"], cell["kind"])}
+    mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"))
+if cell["layers"]:
+    cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
 d.get_config = lambda a: cfg
-d.SHAPES = {"train_4k": ShapeConfig("train_4k", int(seq), int(batch), kind)}
-mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"))
-_, lowered = d._lower_cell(arch, "train_4k", mesh, shd.ShardingRules(), scheme=scheme)
-EINSUMS, DECODE_EINSUMS = json.loads(sys.argv[7])
+_, lowered = d._lower_cell(arch, shape, mesh, shd.ShardingRules(), scheme=scheme)
 
 
 def dots(text, loops):
@@ -139,7 +167,8 @@ def label(op_name, sizes):
     return group, "bwd" if "transpose(jvp" in op_name else "fwd"
 
 
-final = dots(lowered.compile().as_text(), loops=True)
+compiled = lowered.compile()
+final = dots(compiled.as_text(), loops=True)
 parted, = glob.glob(os.path.join(dump, "*after_spmd-partitioning*.txt"))
 pool = collections.defaultdict(list)
 for p in dots(open(parted).read(), loops=False):
@@ -153,17 +182,31 @@ for p in final:
         name = names.pop(0) if names else ""
     group, way = label(name, p["sizes"])
     rows.append({"group": group, "way": way, "flops": p["mult"] * p["flops"]})
-print(json.dumps(rows))
+live = rl.analyze(compiled).summary()
+print(json.dumps({"rows": rows, "live": {k: live[k] for k in
+                                         ("argument_gib", "temp_gib", "peak_hbm_gib")}}))
 """
 
 
-def reference_rows(arch, scheme, batch, seq, kind="train"):
+LIVE = ("argument_gib", "temp_gib", "peak_hbm_gib")
+
+
+def _cell(arch, scheme, batch=16, seq=64, kind="train", shape=None, multi_pod=False,
+          layers=None):
+    return {"arch": arch, "scheme": scheme, "batch": batch, "seq": seq, "kind": kind,
+            "shape": shape, "multi_pod": multi_pod, "layers": layers}
+
+
+def reference_cell(cell):
+    """The reference's dots of ``cell`` (``_cell``), grouped as rows, and
+    its live bytes a device: ``{"rows", "live"}``."""
+    devices = 512 if cell["shape"] else 16
     with tempfile.TemporaryDirectory() as dump:
         env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
-               "XLA_FLAGS": "--xla_force_host_platform_device_count=16 "
+               "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices} "
                             f"--xla_dump_to={dump} --xla_dump_hlo_pass_re=spmd-partitioning"}
-        out = subprocess.run([sys.executable, "-c", _REFERENCE, arch, scheme, str(batch),
-                              str(seq), dump, kind, json.dumps([EINSUMS, DECODE_EINSUMS])],
+        out = subprocess.run([sys.executable, "-c", _REFERENCE, json.dumps(cell), dump,
+                              json.dumps([EINSUMS, DECODE_EINSUMS])],
                              env=env, capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(out.stderr[-3000:])
@@ -265,15 +308,21 @@ def products(cfg, graph, tokens=None):
         sources = {_source(a) for a in operands}
         stack = node.meta.get("stack_trace") or ""
         way = "bwd" if "autograd.grad" in stack else "fwd"
-        group = _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
+        # a forward product under attention, the SSD scan, the Mamba2 block
+        # or the unembedding is that group whatever its dims (at a batch of
+        # one token every dim is a multiple of the capacity)
+        on_stack = _stack_label(stack) if way == "fwd" else None
+        group = on_stack if on_stack not in (None, "rest") else \
+            _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
         if group == "dispatch/combine":  # the one-hot products, told apart by what they contract
             k = shapes[0][-1]
             if way == "fwd":
                 group = "combine" if k % cap == 0 else "dispatch"
             else:
                 group = "dispatch" if k % cap == 0 else "combine"
-        elif group is None and way == "fwd":
-            group = _stack_label(stack)
+        elif group is None:
+            group = on_stack
+        if group is not None and group == on_stack:
             fwd[_signature(shapes)].add(group)
             for src in sources:
                 by_source[src].add(group)
@@ -307,32 +356,49 @@ def _source(node):
     return node
 
 
-def port_rows(arch, scheme, batch, seq, kind="train"):
-    """The port's products and its collectives a device by kind."""
+def port_cell(cell):
+    """The port's products of ``cell`` (``_cell``), its collectives a device
+    by kind, and its live bytes a device: ``(rows, collectives, live)``."""
     import torch
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     import repro_torch.launch.dryrun as dr
-    from repro_torch.analysis import roofline
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.analysis import hlo, roofline
+    from repro_torch.configs import SHAPES, get_config, reduced_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.mesh import _mesh
+    from repro_torch.launch.mesh import _mesh, make_production_mesh
 
     torch.set_num_threads(1)
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
-    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+    arch, kind = cell["arch"], cell["kind"]
+    if cell["shape"]:
+        cfg, shape = get_config(arch), cell["shape"]
+        mesh = make_production_mesh(multi_pod=cell["multi_pod"])
+        shp = SHAPES[shape]
+        batch, seq, kind = shp.global_batch, shp.seq_len, shp.kind
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="bfloat16")
+        shape, batch, seq = kind, cell["batch"], cell["seq"]
+        dr.SHAPES = {kind: ShapeConfig(kind, seq, batch, kind)}
+        mesh = _mesh("cpu", (4, 4), ("data", "model"))
+    if cell["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+    get = dr.get_config
     dr.get_config = lambda a: cfg
-    dr.SHAPES = {kind: ShapeConfig(kind, seq, batch, kind)}
     try:
         with stack_traces():
-            _, graph = dr._lower_cell(arch, kind, _mesh("cpu", (4, 4), ("data", "model")),
-                                      shd.ShardingRules(), scheme=scheme)
+            _, graph = dr._lower_cell(arch, shape, mesh, shd.ShardingRules(),
+                                      scheme=cell["scheme"])
     finally:
+        dr.get_config = get
         dist.destroy_process_group()
+    live = hlo.live_bytes(graph)
     return (products(cfg, graph, group_tokens(arch, kind, batch, seq)),
-            roofline.collective_stats(graph))
+            roofline.collective_stats(graph),
+            {"argument_gib": live["argument"] / 2**30, "temp_gib": live["temp"] / 2**30,
+             "peak_hbm_gib": live["peak"] / 2**30})
 
 
 def sums(rows):
@@ -364,26 +430,51 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
     ap.add_argument("--kind", default="train", choices=KINDS)
+    ap.add_argument("--shape", default=None,
+                    help="a full-size cell of the sweep (train_4k, prefill_32k, ...)")
+    ap.add_argument("--multi-pod", action="store_true", help="with --shape: 512 ranks")
+    ap.add_argument("--layers", type=int, default=None, help="cut the config to this depth")
     ap.add_argument("--scheme", default=None,
-                    help='default "dp" for a train cell, "sp" for a serve cell')
+                    help='default "dp" for a reduced train cell, "sp" for a serve cell, '
+                         "sweep.scheme_for's at full size")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--port-only", action="store_true", help="skip the reference's compile")
-    ap.add_argument("--json", default=None, help="also write both sides' groups here")
+    side = ap.add_mutually_exclusive_group()
+    side.add_argument("--port-only", action="store_true", help="skip the reference's compile")
+    side.add_argument("--reference-only", action="store_true", help="skip the port's trace")
+    ap.add_argument("--json", default=None,
+                    help="also write both sides' groups and live bytes here, with the "
+                         "port's trace seconds and this process's peak resident memory")
     args = ap.parse_args(argv)
-    scheme = args.scheme or ("dp" if args.kind == "train" else "sp")
-    ref = (None if args.port_only else
-           reference_rows(args.arch, scheme, args.batch, args.seq, args.kind))
-    port, colls = port_rows(args.arch, scheme, args.batch, args.seq, args.kind)
-    text, p, r = table(port, ref)
+    if args.shape:
+        sys.path.insert(0, SRC)
+        from repro_torch.launch.sweep import scheme_for
+        scheme = args.scheme or scheme_for(args.arch, args.shape)
+    else:
+        scheme = args.scheme or ("dp" if args.kind == "train" else "sp")
+    cell = _cell(args.arch, scheme, args.batch, args.seq, args.kind, args.shape,
+                 args.multi_pod, args.layers)
+    ref = None if args.port_only else reference_cell(cell)
+    t0 = time.perf_counter()
+    port, colls, live = ([], {}, None) if args.reference_only else port_cell(cell)
+    trace_s = time.perf_counter() - t0
+    text, p, r = table(port, ref and ref["rows"])
     print(text)
-    print("port collectives a device: " + ", ".join(
-        f"{k} {v['count']} x, {int(v['bytes']):,} B" for k, v in sorted(colls.items())))
+    for name, got in (("port", live), ("reference", ref and ref["live"])):
+        if got:
+            print(f"{name} live bytes a device: " + ", ".join(f"{k} {v:.4f}"
+                                                             for k, v in got.items()))
+    if not args.reference_only:
+        print("port collectives a device: " + ", ".join(
+            f"{k} {v['count']} x, {int(v['bytes']):,} B" for k, v in sorted(colls.items())))
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"port": {"/".join(k): v for k, v in p.items()},
+            json.dump({"cell": cell, "port": {"/".join(k): v for k, v in p.items()},
                        "reference": {"/".join(k): v for k, v in r.items()},
-                       "collectives": colls}, f, indent=1)
+                       "port_live": live, "reference_live": ref and ref["live"],
+                       "collectives": colls, "port_trace_s": live and trace_s,
+                       "rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20},
+                      f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,17 @@
 """Time and dissect one rank's traced step of a dry-run cell.
 
     PYTHONPATH=src python tools/dryrun_trace.py --arch qwen2-0.5b \\
-        --shape train_4k --scheme dp [--layers 12] [--old-trace]
+        --shape train_4k --scheme dp [--layers 12] [--old-trace] [--peak 12]
 
 Traces the cell as ``repro_torch.launch.dryrun`` does, on a fake world of
 the production mesh, and prints one JSON line: the trace's wall time and
 the part of it Python's garbage collector took, the graph's nodes and
 FLOPs (``analysis.hlo``'s count), the collectives by kind (count and result bytes) before and after the dead-code
-pass, and the ops whose results the scalar all-reduces read.
+pass, and the ops whose results the scalar all-reduces read. ``--peak N``
+adds the live bytes a device (``analysis.hlo.live_bytes``: arguments,
+temp, peak) and the ``N`` largest op results alive at the peak, each with
+its shape, its GiB, and the index of the op that makes it and of its last
+use.
 ``--old-trace`` hands the DTensors to ``make_fx`` whole and keeps torch's
 own dead-code pass, as the dry run traced before it traced the local
 shards; it is here only to compare the two.
@@ -38,6 +42,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--scheme", default="dp")
     ap.add_argument("--layers", type=int, default=None, help="cut the config to this depth")
     ap.add_argument("--old-trace", action="store_true")
+    ap.add_argument("--peak", type=int, default=0,
+                    help="list this many of the largest results alive at the peak")
     args = ap.parse_args(argv)
 
     if args.layers:
@@ -90,6 +96,12 @@ def main(argv=None) -> dict:
            "nodes": len(graph.graph.nodes), "flops": hlo.analyze_graph(graph).flops,
            "collectives_before_dead_code": before["collectives"],
            "collectives": _stats(graph), "scalar_all_reduce_inputs": dict(producers)}
+    if args.peak:
+        live = hlo.live_bytes(graph, top=args.peak)
+        out["live_gib"] = {k: live[k] / 2**30 for k in ("argument", "temp", "peak")}
+        out["peak_at"] = [live["peak_at"], len(graph.graph.nodes)]
+        out["alive_at_peak"] = [[name, op, shapes, size / 2**30, born, last]
+                                for name, op, shapes, size, born, last in live["at_peak"]]
     print(json.dumps(out), flush=True)
     return out
 
