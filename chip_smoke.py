@@ -37,12 +37,23 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    chunk, and the serving prefills' (8, 2081, 32, 64, N 128, chunk 256) of
    mamba2-370m, also with slow decay (the state carried across whole
    chunks), and (8, 2081, 128, 64, N 16, chunk 64) of jamba-v0.1-52b, with
-   kernel and plain times and the card's bound;
+   kernel and plain times and the card's bound; then, at both serving
+   prefills' shapes in fp32 and bf16, the scan split as a sequence-split
+   prefill runs it (``SPLIT_CUTS``: 4 blocks of whole chunks, the last
+   ragged): each block's states call, the carry of the blocks before it
+   (``ssd_carry``, a nonzero initial state) and its output call, against
+   ``ssd_chunked_ref`` on the whole sequence (y and the final state, the
+   same tolerances), the chain's time beside the one-call kernel's;
 6. mamba2-370m at full width in fp32 (TF32 off): prefill logits through the
    kernel against the plain path, and prefill -> 3 decode steps against
    the full forward, both at 2e-3;
 7. the second main path: mamba2-370m in bf16 at full width served by
-   ``DecodeEngine``, as in phase 4;
+   ``DecodeEngine``, as in phase 4; then a sequence-split prefill's Mamba2
+   layers: each of its 48 layers at (8, 2048) split into ``SPLIT_BLOCKS``
+   sequence blocks as that many ranks run them (``ssm.apply_ssm_blocks``:
+   the region a rank runs, its exchanges stacked in this process), the
+   split scan's launches counted around the run, held to the one-call
+   layer (``ssm.apply_ssm``) at 2e-2;
 8. the RMSNorm forward and backward kernels against their plain version
    ``rmsnorm_ref`` under autograd on the card, fp32 (y and dx within 1e-5)
    and bf16 (2e-2), dgain within 1e-4 of its largest entry: the serving
@@ -249,6 +260,10 @@ SSD_MAIN = (8, 2081, 32, 64, 128, 256)  # mamba2-370m serving prefill: 32 heads,
 # carried across chunks reaches deep into each chunk and the final state
 SSD_SLOW = (SSD_MAIN,)
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # y; the fp32 final state holds to 2e-4
+# the split scan at the serving prefills' length: 4 sequence blocks of whole
+# chunks (of 256 and of 64), the last ragged
+SPLIT_CUTS = (0, 512, 1024, 1536, 2081)
+SPLIT_BLOCKS = 4  # phase 7's sequence-split layers: 2 chunks of 256 a block at 2048
 
 # (rows, d_model) of the RMSNorm kernels: serving prefill (8 x 2081 rows) and
 # decode (8) for qwen2 (896) and mamba2 (1024), the train steps of phase 10
@@ -862,6 +877,121 @@ def ssd_phase(torch, ssd, ssd_chunked_ref):
             del xb, dt, a_neg, bm, cm, y, state
     torch.cuda.empty_cache()
     return main
+
+
+def split_chain(torch, ssd_states, ssd_output, ssd_carry, args, cuts, chunk):
+    """y and the final state of the scan over ``args`` cut into sequence
+    blocks at ``cuts``, as the ranks of a sequence split run it: each
+    block's states call, the carry of the blocks before it, its output
+    call from that state."""
+    xb, dt, a_neg, bm, cm = args
+    spans = list(zip(cuts, cuts[1:]))
+    blocks = [tuple(t[:, u:v].contiguous() for t in (xb, dt, bm, cm)) for u, v in spans]
+    first = [ssd_states(x, d, a_neg, b, chunk) for x, d, b, _ in blocks]
+    finals = torch.stack([f for _, _, f in first])
+    decays = torch.stack([d.prod(1) for _, d, _ in first])
+    ys, final = [], None
+    for k, ((x, d, b, c), res) in enumerate(zip(blocks, first)):
+        y, final = ssd_output(x, d, a_neg, b, c, chunk, *res, ssd_carry(finals, decays, k))
+        ys.append(y)
+    return torch.cat(ys, 1), final
+
+
+def ssd_split_phase(torch, ssd, ssd_chunked_ref, ssd_carry):
+    """Phase 5's split scan at both serving prefills' shapes: the chain of
+    ``SPLIT_CUTS`` blocks against ``ssd_chunked_ref`` on the whole sequence,
+    timed beside the one-call kernel. Returns the bf16 entries by shape."""
+    main = {}
+    for shape in (SSD_MAIN, JAMBA_SSD_SHAPE):
+        b, l, h, p, n, chunk = shape
+        cuts = SPLIT_CUTS[:-1] + (l,)
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=DEVICE).manual_seed(b * 1000 + l + n + 7)
+
+            def draw(*shp):
+                return torch.randn(shp, generator=gen, device=DEVICE)
+            # slow decay, so the carried state reaches deep into each block
+            args = ((0.5 * draw(b, l, h, p)).to(dtype),
+                    torch.nn.functional.softplus(draw(b, l, h) - 4.0),
+                    -torch.exp(0.3 * draw(h)), (0.5 * draw(b, l, n)).to(dtype),
+                    (0.5 * draw(b, l, n)).to(dtype))
+            y, final = split_chain(torch, ssd.ssd_states_blhp, ssd.ssd_output_blhp, ssd_carry,
+                                   args, cuts, chunk)
+            yw, sw = ssd_chunked_ref(*(t.float() for t in args), chunk)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            tol = SSD_TOL[name]
+            diff = (y.float() - yw.to(dtype).float()).abs()
+            err = diff.max().item()
+            excess = (diff - (tol + tol * yw.to(dtype).float().abs())).max().item()
+            sdiff = (final - sw).abs()
+            serr = sdiff.max().item()
+            sexcess = (sdiff - (2e-4 + 2e-4 * sw.abs())).max().item()
+            check(excess <= 0, f"split ssd {shape} {name}: y max abs err {err} over tol {tol}")
+            check(sexcess <= 0, f"split ssd {shape} {name}: state max abs err {serr} over 2e-4")
+            del yw, sw, diff, sdiff
+            ms = time_ms(torch, lambda: split_chain(torch, ssd.ssd_states_blhp,
+                                                    ssd.ssd_output_blhp, ssd_carry, args,
+                                                    cuts, chunk))
+            one_ms = time_ms(torch, lambda: ssd.ssd_scan_blhp(*args, chunk))
+            plain_ms = time_ms(torch, lambda: ssd_chunked_ref(*args, chunk), reps=3, warmup=1)
+            bound, by = ssd_bound_ms(b, l, h, p, n, chunk, args[0].element_size())
+            print(f"ssd split kernel (b,l,h,p,n,chunk)={shape} {name}, blocks {cuts}: y "
+                  f"max_abs_err={err:.3e} (tol {tol}) state max_abs_err={serr:.3e} (tol 2e-4) "
+                  f"chain_ms={ms:.4f} one_call_ms={one_ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({by})")
+            if dtype == torch.bfloat16:
+                main[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=by, library_ms=None, one_call_ms=one_ms)
+            del args, y, final
+    torch.cuda.empty_cache()
+    return main
+
+
+def split_prefill_phase(torch, cfg, build_model, ssd):
+    """Phase 7's sequence-split layers: every Mamba2 layer of ``cfg`` (bf16,
+    full width, seed 0) at (``SERVE_BATCH``, ``PROMPT``) run as
+    ``SPLIT_BLOCKS`` ranks of a sequence split run it
+    (``ssm.apply_ssm_blocks``), with the split scan's launches set to 0
+    just before and read just after; then each layer's output and cache
+    against the one-call layer (``ssm.apply_ssm``) at 2e-2. Returns the
+    launches."""
+    from repro_torch.models import ssm
+    print(f"== phase 7 (the sequence-split path): {cfg.name} bf16 full width, "
+          f"{cfg.num_layers} Mamba2 layers at ({SERVE_BATCH}, {PROMPT}) over {SPLIT_BLOCKS} "
+          f"sequence blocks")
+    model = build_seeded(torch, build_model, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn((SERVE_BATCH, PROMPT, cfg.d_model), generator=gen,
+                    device=DEVICE).to(model.dtype)
+    mixers = [{k: v for k, v in layer.mixer.items()} for layer in model.layers]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ssd.split_launches = 0
+        t0 = time.perf_counter()
+        split = [ssm.apply_ssm_blocks(p, cfg, x, SPLIT_BLOCKS) for p in mixers]
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        launches = ssd.split_launches
+        t0 = time.perf_counter()
+        whole = [ssm.apply_ssm(p, cfg, x, return_cache=True) for p in mixers]
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+    want = 2 * SPLIT_BLOCKS * len(mixers)
+    check(launches == want, f"split scan launches {launches}, expected {want}")
+    err = 0.0
+    for i, ((y, cache), (yw, cw)) in enumerate(zip(split, whole)):
+        for name, got, ref in [("y", y, yw)] + [(k, cache[k], cw[k]) for k in cw]:
+            diff = (got.float() - ref.float()).abs()
+            excess = (diff - (2e-2 + 2e-2 * ref.float().abs())).max().item()
+            err = max(err, diff.max().item())
+            check(excess <= 0, f"split layer {i} {name}: max abs err {diff.max().item()}")
+    print(f"sequence-split layers: {launches} split-scan launches, max abs err {err:.3e} "
+          f"(tol 2e-2) against the one-call layers; {split_s * 1e3:.1f} ms split, "
+          f"{whole_s * 1e3:.1f} ms one-call, host clock")
+    del model, split, whole, x
+    torch.cuda.empty_cache()
+    return launches
 
 
 def rms_bound_ms(r: int, d: int, dtype_bytes: int, backward: bool):
@@ -2563,7 +2693,7 @@ def main() -> int:
     from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
     from repro_torch.models import build_model
     from repro_torch.models.api import use_impls
-    from repro_torch.models.ssm import ssd_chunked_ref
+    from repro_torch.models.ssm import ssd_carry, ssd_chunked_ref
     from repro_torch.serve.engine import DecodeEngine
     from repro_torch.train import optimizer as topt
     from repro_torch.train import step as tstep
@@ -2606,10 +2736,12 @@ def main() -> int:
 
     ssd_main = ssd_phase(torch, ssd, ssd_chunked_ref)
     check(set(ssd_main) == {SSD_MAIN, JAMBA_SSD_SHAPE}, "a main-path SSD shape was not run")
+    split_main = ssd_split_phase(torch, ssd, ssd_chunked_ref, ssd_carry)
     mamba = get_config("mamba2-370m")
     model_check_phase(torch, "phase 6", mamba, build_model, all_plain, steps=3)
     mamba_launches = serve_phase(torch, "phase 7", mamba, build_model, DecodeEngine, counters,
                                  *serve_launches(mamba))
+    split_launches = split_prefill_phase(torch, mamba, build_model, ssd)
 
     rms_main = rmsnorm_phase(torch, F, rn, rmsnorm_ref)
     check(set(rms_main) == {"rmsnorm_fwd", "rmsnorm_bwd"}, "main-path RMSNorm shape was not run")
@@ -2703,6 +2835,9 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_scan.py:24",
              launches=new_archs["launches"][jamba]["ssd_scan"],
              shape=f"{jamba} {JAMBA_SSD_SHAPE}", **ssd_main[JAMBA_SSD_SHAPE]),
+        dict(name="ssd_scan split (states + output calls)", route="cuda", source=ssd_source,
+             replaces="src/repro/kernels/ssd_scan.py:24", launches=split_launches,
+             shape=f"mamba2-370m {SSD_MAIN}, blocks {SPLIT_CUTS}", **split_main[SSD_MAIN]),
         dict(name="rmsnorm_fwd", route="cuda", source=rms_source,
              replaces="src/repro/kernels/rmsnorm.py:18",
              launches=profile_launches["rmsnorm_fwd"], shape=f"qwen2-0.5b {RMS_MAIN}",

@@ -652,6 +652,26 @@ def sequence_split_product(x, w):
     return local_map(lambda xl, wl: xl @ wl, list(pls), (pls, w.placements), mesh)(x, w)
 
 
+def last_position(x):
+    """``x[:, -1:]`` of ``x`` (B, S, D). A DTensor split over its sequence
+    gives each rank's last position first (a local slice), so only those
+    are gathered over the sequence's mesh dims, one a rank: DTensor's own
+    slice gathers the whole sequence (134 MB a device for a 32768-token
+    prefill at d_model 1024 and 2 rows a rank)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or x.ndim != 3 \
+            or not any(p.is_shard() and p.dim % 3 == 1 for p in x.placements) \
+            or any(p.is_partial() for p in x.placements):
+        return x[:, -1:]
+    mesh = x.device_mesh
+    n = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(1))
+    if x.shape[1] % n:
+        return x[:, -1:]
+    lasts = DTensor.from_local(x.to_local()[:, -1:], mesh, x.placements, run_check=False)
+    return lasts[:, -1:]
+
+
 _REPLICATING = contextvars.ContextVar("replicating_plain_tensors", default=False)
 
 

@@ -24,6 +24,16 @@
 // operands, 0.37 ms at the 67 TFLOP/s of fp32 FMAs): 0.374 ms; the bytes
 // (x and y 68 MB each, B, C, dt and the state 19 MB) take 0.046 ms.
 //
+// The launches are also exposed as two calls, for a sequence split over
+// ranks: ssd_scan_states (launches 1-2, each chunk's entering state and
+// total decay and the block's final state, all from zero) and
+// ssd_scan_output (launch 3), which takes an optional initial state S_in
+// (B, H, N, P) fp32 of the block. With S_in, launch 3 adds
+// exp(cum from the block's start to chunk c's) S_in to chunk c's entering
+// state as it loads it (the product of the chunk decays before c), so
+// C . S_prev is one product as before, and blocks of chunk 0 write the
+// final state exp(cum over the block) S_in + the block's own.
+//
 // Design. The TPU kernel walks the chunks on a sequential grid axis with
 // the state in VMEM. Here the SSD decomposition runs as three launches, so
 // that all but a short recurrence is parallel over chunks:
@@ -443,7 +453,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_output(const T* __restrict__ xb, const float* __restrict__ dt,
            const float* __restrict__ a_neg, const T* __restrict__ bmat,
            const T* __restrict__ cmat, const float* __restrict__ states, T* __restrict__ y,
-           int len_total, int heads, int n_state, int chunk) {
+           int len_total, int heads, int n_state, int chunk,
+           const float* __restrict__ decay, const float* __restrict__ s_in,
+           const float* __restrict__ final0, float* __restrict__ final_out) {
   static_assert(kHeadGroup * 128 == kThreads, "128 threads a head");
   constexpr int P = 16 * TN, GP = kHeadGroup * P;
   constexpr int kXStride = GP + 4, kGStride = kTile + 4;
@@ -460,6 +472,7 @@ ssd_output(const T* __restrict__ xb, const float* __restrict__ dt,
   const size_t inter = static_cast<size_t>(kHeadGroup) * n_state * P;
   float* sCum = region + (intra > inter ? intra : inter);  // (group, kMaxChunk)
   __shared__ float sPart[kThreads / 32];
+  __shared__ float sWin[kHeadGroup], sWall[kHeadGroup];  // decay before chunk c, over all
 
   const int n_tiles = (chunk + kTile - 1) / kTile, n_chunks = (len_total + chunk - 1) / chunk;
   const int c = blockIdx.x / n_tiles, h0 = blockIdx.y * kHeadGroup, b = blockIdx.z;
@@ -473,6 +486,33 @@ ssd_output(const T* __restrict__ xb, const float* __restrict__ dt,
   const size_t x_stride = static_cast<size_t>(heads) * P;
   const int group = min(heads - h0, kHeadGroup);  // heads of this block
   const float* cum = sCum + g * kMaxChunk;
+  const int np = n_state * P;
+
+  if (s_in != nullptr) {
+    // the decay from the block's start to chunk c's and over the whole block,
+    // per head of the group; blocks of chunk 0 (none returned above) fold S_in
+    // into the final state
+    if (tid < group) {
+      float w = 1.f;
+      for (int j = 0; j < n_chunks; ++j) {
+        if (j == c) sWin[tid] = w;
+        w *= decay[(static_cast<size_t>(b) * n_chunks + j) * heads + h0 + tid];
+      }
+      sWall[tid] = w;
+    }
+    __syncthreads();
+    if (blockIdx.x == 0) {
+      const size_t base = (static_cast<size_t>(b) * heads + h0) * np;
+      for (int i = 4 * tid; i < group * np; i += 4 * kThreads) {
+        const float w = sWall[i / np];
+        const float4 u = *reinterpret_cast<const float4*>(s_in + base + i);
+        float4 v = *reinterpret_cast<const float4*>(final0 + base + i);
+        v.x = fmaf(w, u.x, v.x); v.y = fmaf(w, u.y, v.y);
+        v.z = fmaf(w, u.z, v.z); v.w = fmaf(w, u.w, v.w);
+        *reinterpret_cast<float4*>(final_out + base + i) = v;
+      }
+    }
+  }
 
 #pragma unroll
   for (int k = 0; k < kHeadGroup; ++k)
@@ -530,13 +570,23 @@ ssd_output(const T* __restrict__ xb, const float* __restrict__ dt,
       }
     }
 
-    // inter-chunk term: y_t += exp(cum_t) C_t . S_prev (no state enters chunk 0)
-    if (c > 0) {
+    // inter-chunk term: y_t += exp(cum_t) C_t . S_prev (no state enters chunk 0
+    // but S_in); S_prev = the entering state from zero + the decayed S_in
+    if (c > 0 || s_in != nullptr) {
       __syncthreads();  // readers of the region (sX, sG) are done
       const float* src = states + ((static_cast<size_t>(b) * n_chunks + c) * heads + h0) *
-                                      n_state * P;  // the group's heads are adjacent
-      for (int i = 4 * tid; i < group * n_state * P; i += 4 * kThreads)
-        *reinterpret_cast<float4*>(sS + i) = *reinterpret_cast<const float4*>(src + i);
+                                      np;  // the group's heads are adjacent
+      const float* init = s_in + (static_cast<size_t>(b) * heads + h0) * np;
+      for (int i = 4 * tid; i < group * np; i += 4 * kThreads) {
+        float4 v = *reinterpret_cast<const float4*>(src + i);
+        if (s_in != nullptr) {
+          const float w = sWin[i / np];
+          const float4 u = *reinterpret_cast<const float4*>(init + i);
+          v.x = fmaf(w, u.x, v.x); v.y = fmaf(w, u.y, v.y);
+          v.z = fmaf(w, u.z, v.z); v.w = fmaf(w, u.w, v.w);
+        }
+        *reinterpret_cast<float4*>(sS + i) = v;
+      }
       __syncthreads();
       float cs[8][TN];
 #pragma unroll
@@ -588,6 +638,8 @@ struct Args {
   void *y, *state, *states, *decay;
   int batch, len, heads, n_state, chunk, n_chunks;
   cudaStream_t stream;
+  const void* s_in;  // the output call's initial state, or null
+  void* final_out;   // with s_in: the final state including it
 };
 
 template <typename T, int TN, int RN>
@@ -600,8 +652,9 @@ int launch_chunk_state(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// launches 1-2
 template <typename T, int TN>
-int launch(const Args& a) {
+int launch_states(const Args& a) {
   constexpr int P = 16 * TN;
   int err;
   if (a.n_state <= 16) err = launch_chunk_state<T, TN, 1>(a);
@@ -614,9 +667,13 @@ int launch(const Args& a) {
   ssd_state_pass<<<dim3((np + 4 * kThreads - 1) / (4 * kThreads), a.heads, a.batch), kThreads, 0,
                    a.stream>>>(static_cast<float*>(a.states), static_cast<const float*>(a.decay),
                                static_cast<float*>(a.state), a.n_chunks, a.heads, np);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
 
+// launch 3
+template <typename T, int TN>
+int launch_output(const Args& a) {
+  constexpr int P = 16 * TN;
   static bool attribute_set = false;  // once per process and instance, for the largest N
   if (!attribute_set) {
     cudaError_t e = cudaFuncSetAttribute(ssd_output<T, TN>,
@@ -632,18 +689,41 @@ int launch(const Args& a) {
       static_cast<const T*>(a.xb), static_cast<const float*>(a.dt),
       static_cast<const float*>(a.a_neg), static_cast<const T*>(a.bmat),
       static_cast<const T*>(a.cmat), static_cast<const float*>(a.states), static_cast<T*>(a.y),
-      a.len, a.heads, a.n_state, a.chunk);
+      a.len, a.heads, a.n_state, a.chunk, static_cast<const float*>(a.decay),
+      static_cast<const float*>(a.s_in), static_cast<const float*>(a.state),
+      static_cast<float*>(a.final_out));
   return static_cast<int>(cudaGetLastError());
 }
 
+enum Part { kStates = 1, kOutput = 2, kBoth = 3 };
+
+template <typename T, int TN>
+int launch(const Args& a, int part) {
+  if (part & kStates) {
+    const int err = launch_states<T, TN>(a);
+    if (err) return err;
+  }
+  return part & kOutput ? launch_output<T, TN>(a) : 0;
+}
+
 template <typename T>
-int dispatch(int head_dim, const Args& a) {
+int dispatch(int head_dim, const Args& a, int part) {
   switch (head_dim) {
-    case 16: return launch<T, 1>(a);
-    case 32: return launch<T, 2>(a);
-    case 64: return launch<T, 4>(a);
+    case 16: return launch<T, 1>(a, part);
+    case 32: return launch<T, 2>(a, part);
+    case 64: return launch<T, 4>(a, part);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int run(const Args& a, int head_dim, int is_bf16, int part) {
+  if (a.chunk < 1 || a.chunk > kMaxChunk || a.n_state < 8 || a.n_state > kMaxN ||
+      a.n_state % 8 || a.len < 1 || a.batch < 1 || a.heads < 1 ||
+      a.n_chunks != (a.len + a.chunk - 1) / a.chunk || a.batch > 65535 || a.heads > 65535 ||
+      (a.s_in != nullptr && a.final_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16) return dispatch<__nv_bfloat16>(head_dim, a, part);
+  return dispatch<float>(head_dim, a, part);
 }
 
 }  // namespace
@@ -662,14 +742,41 @@ extern "C" int ssd_scan_forward(const void* xb, const void* dt, const void* a_ne
                                 void* states, void* decay, int batch, int len, int heads,
                                 int head_dim, int n_state, int chunk, int n_chunks,
                                 int is_bf16, void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk || n_state < 8 || n_state > kMaxN || n_state % 8 ||
-      len < 1 || batch < 1 || heads < 1 || n_chunks != (len + chunk - 1) / chunk ||
-      batch > 65535 || heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{xb, dt, a_neg, bmat, cmat, y, state, states, decay,
-               batch, len, heads, n_state, chunk, n_chunks, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return dispatch<__nv_bfloat16>(head_dim, a);
-  return dispatch<float>(head_dim, a);
+               batch, len, heads, n_state, chunk, n_chunks, static_cast<cudaStream_t>(stream),
+               nullptr, nullptr};
+  return run(a, head_dim, is_bf16, kBoth);
+}
+
+// Launches 1-2 alone: states (the state entering each chunk), decay (each
+// chunk's total decay) and state (the block's final state), all from zero,
+// as ssd_scan_forward leaves them; cmat and y are not read.
+extern "C" int ssd_scan_states(const void* xb, const void* dt, const void* a_neg,
+                               const void* bmat, void* state, void* states, void* decay,
+                               int batch, int len, int heads, int head_dim, int n_state,
+                               int chunk, int n_chunks, int is_bf16, void* stream) {
+  const Args a{xb, dt, a_neg, bmat, bmat, nullptr, state, states, decay,
+               batch, len, heads, n_state, chunk, n_chunks, static_cast<cudaStream_t>(stream),
+               nullptr, nullptr};
+  return run(a, head_dim, is_bf16, kStates);
+}
+
+// Launch 3 alone, on ssd_scan_states' states, decay and final state (read
+// only). With s_in (batch, heads, n_state, head_dim) fp32, the block starts
+// from it: y takes its decayed share, and final_out (like s_in, distinct
+// from state) gets the final state; s_in null reads as zero and leaves
+// final_out unwritten.
+extern "C" int ssd_scan_output(const void* xb, const void* dt, const void* a_neg,
+                               const void* bmat, const void* cmat, const void* states,
+                               const void* decay, const void* state, const void* s_in,
+                               void* y, void* final_out, int batch, int len, int heads,
+                               int head_dim, int n_state, int chunk, int n_chunks, int is_bf16,
+                               void* stream) {
+  const Args a{xb, dt, a_neg, bmat, cmat, y, const_cast<void*>(state),
+               const_cast<void*>(states), const_cast<void*>(decay),
+               batch, len, heads, n_state, chunk, n_chunks, static_cast<cudaStream_t>(stream),
+               s_in, final_out};
+  return run(a, head_dim, is_bf16, kOutput);
 }
 
 extern "C" const char* ssd_scan_error_string(int err) {

@@ -56,6 +56,33 @@ def ssd_scan(xb, dt, a_neg, bmat, cmat, chunk: int):
     raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {xb.device}")
 
 
+def ssd_states(xb, dt, a_neg, bmat, chunk: int):
+    """The scan's first call on a block of the sequence (model layout):
+    (states entering each chunk, each chunk's decay, the block's final
+    state), from zero, matching ``repro_torch.models.ssm.ssd_states_ref``."""
+    if xb.is_cuda:
+        return ssd.ssd_states_blhp(xb.contiguous(), dt.contiguous(), a_neg.contiguous(),
+                                   bmat.contiguous(), chunk)
+    if xb.device.type == "cpu":
+        from repro_torch.models.ssm import ssd_states_ref
+        return ssd_states_ref(xb, dt, a_neg, bmat, chunk)
+    raise ValueError(f"ssd_states runs on CUDA or CPU tensors, not {xb.device}")
+
+
+def ssd_output(xb, dt, a_neg, bmat, cmat, chunk: int, states, decay, final, s_in=None):
+    """The scan's second call: (y, final state) of the block from
+    ``ssd_states``' results and the block's initial state ``s_in`` (or
+    zero), matching ``repro_torch.models.ssm.ssd_output_ref``."""
+    if xb.is_cuda:
+        return ssd.ssd_output_blhp(xb.contiguous(), dt.contiguous(), a_neg.contiguous(),
+                                   bmat.contiguous(), cmat.contiguous(), chunk, states, decay,
+                                   final, None if s_in is None else s_in.contiguous())
+    if xb.device.type == "cpu":
+        from repro_torch.models.ssm import ssd_output_ref
+        return ssd_output_ref(xb, dt, a_neg, bmat, cmat, chunk, states, decay, final, s_in)
+    raise ValueError(f"ssd_output runs on CUDA or CPU tensors, not {xb.device}")
+
+
 class _RMSNorm(torch.autograd.Function):
     """The RMSNorm kernels as one differentiable op. The forward saves the
     rows' rstd, so the backward kernel does not recompute it (and a remat

@@ -9,6 +9,13 @@ makes no layout copies. One call of ``ssd_scan_blhp`` issues three kernels
 counts as one launch; ``plan`` gives the chunking and the scratch the
 wrapper allocates for them (the kernels' grids are chosen in the source).
 
+For a sequence split over ranks the same kernels run as two calls:
+``ssd_states_blhp`` (chunk states and the recurrence: each chunk's entering
+state, each chunk's total decay and the block's final state, from zero) and
+``ssd_output_blhp`` (the outputs, from an optional initial state ``s_in``
+of the block, which the output kernel folds into each chunk's entering
+state as it loads it). Each call counts one in ``split_launches``.
+
 Nothing here falls back: a failed build, an input the kernel does not take
 or a failed launch raises. The kernel has no backward, so an input that
 autograd tracks is refused too (train through ``set_ssd_impl("plain")``). ``launches`` counts the kernel launches of this
@@ -30,6 +37,7 @@ MAX_CHUNK = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
+split_launches = 0
 
 
 class Plan(NamedTuple):
@@ -50,6 +58,10 @@ def plan(b: int, l: int, h: int, p: int, n: int, chunk: int) -> Plan:
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_forward.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ssd_scan_forward.restype = ctypes.c_int
+    lib.ssd_scan_states.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.ssd_scan_states.restype = ctypes.c_int
+    lib.ssd_scan_output.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.ssd_scan_output.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
 
@@ -92,6 +104,75 @@ def _check(xb, dt, a_neg, bmat, cmat, chunk):
         raise ValueError(f"empty scan: xb {tuple(xb.shape)}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid's y/z limit 65535")
+
+
+def _check_carried(xb, pl: Plan, states, decay, final, s_in):
+    """The states call's results (and ``s_in``) as the output call reads them."""
+    b, _, h, p = xb.shape
+    n = pl.states_shape[3]
+    want = {"states": (states, pl.states_shape), "decay": (decay, pl.decay_shape),
+            "final": (final, (b, h, n, p))}
+    if s_in is not None:
+        want["s_in"] = (s_in, (b, h, n, p))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(t.shape)} {t.dtype}")
+        if t.device != xb.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {xb.device}")
+
+
+def _run(fn, *args):
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream(args[0].device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+    if err != 0:
+        raise RuntimeError("ssd_scan kernel launch failed: "
+                           f"{LIBRARY.load().ssd_scan_error_string(err).decode()} ({err})")
+
+
+def ssd_states_blhp(xb, dt, a_neg, bmat, chunk: int):
+    """Launches 1-2 on a block of the sequence, in the model layout (as
+    ``ssd_scan_blhp``). Returns (states (B,C,H,N,P): the state entering each
+    of the C chunks, decay (B,C,H): each chunk's total decay, final
+    (B,H,N,P): the block's final state), all fp32 and from a zero state, as
+    ``repro_torch.models.ssm.ssd_states_ref``."""
+    global split_launches
+    _check(xb, dt, a_neg, bmat, bmat, chunk)
+    lib = LIBRARY.load()
+    b, l, h, p = xb.shape
+    n = bmat.shape[-1]
+    pl = plan(b, l, h, p, n, chunk)
+    final = torch.empty((b, h, n, p), dtype=torch.float32, device=xb.device)
+    states = torch.empty(pl.states_shape, dtype=torch.float32, device=xb.device)
+    decay = torch.empty(pl.decay_shape, dtype=torch.float32, device=xb.device)
+    _run(lib.ssd_scan_states, xb, dt, a_neg, bmat, final, states, decay, b, l, h, p, n,
+         pl.chunk, pl.n_chunks, int(xb.dtype == torch.bfloat16))
+    split_launches += 1
+    return states, decay, final
+
+
+def ssd_output_blhp(xb, dt, a_neg, bmat, cmat, chunk: int, states, decay, final, s_in=None):
+    """Launch 3 on the block ``ssd_states_blhp`` ran on, from its results
+    and the block's initial state ``s_in`` (B,H,N,P) fp32, or zero where it
+    is None. Returns (y (B,L,H,P) in xb's dtype, the final state (B,H,N,P)
+    fp32: ``final`` itself without ``s_in``), as
+    ``repro_torch.models.ssm.ssd_output_ref``."""
+    global split_launches
+    _check(xb, dt, a_neg, bmat, cmat, chunk)
+    if s_in is not None and torch.is_grad_enabled() and s_in.requires_grad:
+        raise RuntimeError("the SSD scan kernel has no backward")
+    lib = LIBRARY.load()
+    b, l, h, p = xb.shape
+    n = bmat.shape[-1]
+    pl = plan(b, l, h, p, n, chunk)
+    _check_carried(xb, pl, states, decay, final, s_in)
+    y = torch.empty_like(xb)
+    out = final if s_in is None else torch.empty_like(final)
+    _run(lib.ssd_scan_output, xb, dt, a_neg, bmat, cmat, states, decay, final, s_in, y,
+         None if s_in is None else out,
+         b, l, h, p, n, pl.chunk, pl.n_chunks, int(xb.dtype == torch.bfloat16))
+    split_launches += 1
+    return y, out
 
 
 def ssd_scan_blhp(xb, dt, a_neg, bmat, cmat, chunk: int):

@@ -24,6 +24,7 @@ as the reference constrains them. Without one nothing changes.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -280,22 +281,24 @@ def decode_self_attn(p, cfg, x_t, cache, pos, shard=None):
     q = _apply_rope(cfg, q, pos[:, None])
     k_t = _apply_rope(cfg, k_t, pos[:, None])
     smax = cache["k"].shape[1]
-    ar = torch.arange(smax, device=x_t.device)
     k = _cache_write(cache["k"], k_t, pos)
     v = _cache_write(cache["v"], v_t, pos)
-    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
     b = q.shape[0]
     h, kv, hd = _heads(cfg)
     # on a mesh the query's heads are made whole: the cache splits its
     # sequence (the flash-decoding split), and a head split beside a batch
     # split would merge into one DTensor cannot multiply
     q5 = whole_dim(q, 2).reshape(b, 1, kv, h // kv, hd)
+    sub = _idle_split(k, q5)
+    ar = _read_order(smax, k, sub, x_t.device)
+    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
     stat = torch.float32 if q.dtype == torch.float32 else q.dtype
     scale, neg = _stat_consts(hd, stat)
-    scores = _cache_product("bqkgd,bskd->bkgqs", q5, k.to(q.dtype)).to(stat)
-    scores = constrain(shard, "decode_scores5", scores) * scale
-    probs = _softmax(torch.where(mask, scores, neg)).to(q.dtype)
-    ctx = _cache_product("bkgqs,bskd->bqkgd", probs, v.to(q.dtype))
+    scores = _cache_product("bqkgd,bskd->bkgqs", q5, k.to(q.dtype), sub).to(stat)
+    if not sub:  # the reference's constraint would gather a further split
+        scores = constrain(shard, "decode_scores5", scores)
+    probs = _softmax(torch.where(mask, scores * scale, neg)).to(q.dtype)
+    ctx = _cache_product("bkgqs,bskd->bqkgd", probs, v.to(q.dtype), sub)
     ctx = ctx.reshape(b, 1, h, hd)
     return _out_proj(p, ctx, x_t.dtype), {"k": k, "v": v}
 
@@ -331,7 +334,48 @@ def _cache_write(cache, new, pos):
     return local_map(write, pls, (pls, rows, whole), mesh)(cache, new, pos)
 
 
-def _cache_product(eq: str, a, kv):
+def _idle_split(kv, q):
+    """The mesh dims over which a decode step reads each rank's block of the
+    cache ``kv`` (B, S, KV, hd) in parts: those of more than one rank that
+    split neither the step's rows (``q``'s dim 0) nor the cache's rows or
+    sequence, in mesh order, while the block still divides evenly (a batch
+    of one row leaves "data" so, and "pod"). Each rank of such a dim reads
+    its part of the block, as GSPMD splits the reads, where it would read
+    all of it alike; the scores' statistics and the context are then
+    reduced over these dims too. [] off a mesh."""
+    if not _is_dtensor(kv):
+        return []
+    mesh = kv.device_mesh
+    seq = [i for i, p in enumerate(kv.placements) if p.is_shard(1)]
+    block = kv.shape[1] // math.prod(mesh.size(i) for i in seq)
+    out, n = [], 1
+    for i, (pk, pq) in enumerate(zip(kv.placements, q.placements)):
+        if mesh.size(i) > 1 and not (pk.is_shard(0) or pk.is_shard(1)) \
+                and not (pq.is_shard() and pq.dim % q.ndim == 0) \
+                and block % (n * mesh.size(i)) == 0:
+            out.append(i)
+            n *= mesh.size(i)
+    return out
+
+
+def _read_order(smax: int, kv, sub, device):
+    """The cache positions in the order of a decode step's scores: ``arange``
+    where nothing splits the reads further (``_idle_split``); else the order
+    in which the scores, split over the sequence's and the idle dims in mesh
+    order, hold them: rank r of an idle dim reads the r-th part of its
+    sequence block, which is not the r-th part of the whole sequence."""
+    ar = torch.arange(smax, device=device)
+    if not sub:
+        return ar
+    mesh = kv.device_mesh
+    seq = [i for i, p in enumerate(kv.placements) if p.is_shard(1)]
+    dims = seq + sub
+    held = ar.reshape(*(mesh.size(i) for i in dims), -1)  # axes: sequence blocks, parts, position
+    order = sorted(range(len(dims)), key=dims.__getitem__)
+    return held.permute(*order, len(dims)).reshape(smax)
+
+
+def _cache_product(eq: str, a, kv, sub=()):
     """``einsum(eq, a, kv)`` of a decode step's grouped scores (``a`` the
     query) or context (``a`` the probabilities) with the cache's K or V
     (B, S, KV, hd). On DTensors it runs on each rank's rows and its block of
@@ -339,19 +383,30 @@ def _cache_product(eq: str, a, kv):
     makes), the scores split over the sequence there and the context a sum
     over those ranks: DTensor's own einsum may move the cache's split to its
     KV heads (16 of them over 16 ranks) and then refuse to merge them with
-    the batch for the product."""
+    the batch for the product. Each rank of the mesh dims ``sub``
+    (``_idle_split``) reads its part of the block, a local slice: the
+    scores are split there too, in ``_read_order``, and the context summed."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     if not _is_dtensor(kv):
         return torch.einsum(eq, a, kv)
+    mesh = kv.device_mesh
     pls = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in kv.placements]
     rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
-    seq = [Shard(0) if p.is_shard(0) else Shard(4) if p.is_shard(1) else Replicate()
-           for p in pls]
+    split = [p.is_shard(1) or i in sub for i, p in enumerate(pls)]
+    seq = [Shard(0) if p.is_shard(0) else Shard(4) if s else Replicate()
+           for p, s in zip(pls, split)]
     scores = eq.endswith("qs")
-    outs = seq if scores else [Partial() if p.is_shard(1) else r for p, r in zip(pls, rows)]
-    y = local_map(lambda al, kl: torch.einsum(eq, al, kl), outs,
-                  (rows if scores else seq, pls), kv.device_mesh)(a, kv)
+    outs = seq if scores else [Partial() if s else r for s, r in zip(split, rows)]
+    part = shard_index(mesh, sub), math.prod(mesh.size(i) for i in sub)
+
+    def product(al, kl):
+        if sub:
+            n = kl.shape[1] // part[1]
+            kl = kl.narrow(1, part[0] * n, n)
+        return torch.einsum(eq, al, kl)
+
+    y = local_map(product, outs, (rows if scores else seq, pls), mesh)(a, kv)
     return y if scores else reduce_partials(y)
 
 

@@ -132,14 +132,16 @@ def _features_made_whole(p, x) -> bool:
     return x.shape[1] % n == 0
 
 
-def apply_norm(p, x, eps: float = 1e-6):
+def apply_norm(p, x, eps: float = 1e-6, gather: bool = True):
     # on a DTensor the residual stream is summed first where a projection
     # left it partial over the model shards (prefill constrains it once a
     # layer, after the norms), since the norm is not linear; under sequence
     # parallelism the norm runs on the sequence shards of the residual stream
     # and its output is gathered before the projections that follow
-    # (Megatron's all-gather)
-    return shd.whole_sequence(_norm(p, shd.reduce_partials(x), eps))
+    # (Megatron's all-gather), unless ``gather`` is off (a block that runs on
+    # the sequence shards)
+    y = _norm(p, shd.reduce_partials(x), eps)
+    return shd.whole_sequence(y) if gather else y
 
 
 def _norm(p, x, eps: float):

@@ -15,13 +15,14 @@ dt), as in the reference.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (grad_in_layout, local_map, sequence_split_product,
-                                              split_idle, whole_sequence_grad)
+                                              shard_index, split_idle, whole_sequence_grad)
 from repro_torch.models.module import spec
 from repro_torch.models.switch import ImplSwitch
 
@@ -63,14 +64,15 @@ def ssm_spec(cfg):
     }
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv. x (B,L,C), w (W,C), b (C,)."""
+def _causal_conv(x, w, b, halo=None):
+    """Depthwise causal conv. x (B,L,C), w (W,C), b (C,); ``halo`` (B,W-1,C)
+    the positions before x's first (zeros where None)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
         return _conv_per_shard(x, w, b)
     width = w.shape[0]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    xp = F.pad(x, (0, 0, width - 1, 0)) if halo is None else torch.cat([halo, x], dim=1)
     out = torch.zeros_like(x)
     for i in range(width):  # W is 4: unrolled multiply-adds, as in the reference
         out = out + xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
@@ -202,8 +204,109 @@ def ssd_chunked_ref(xb, dt, a_neg, bmat, cmat, chunk: int):
     return y, s
 
 
+def _padded(chunk: int, *ts):
+    """The chunk length min(chunk, L) and the scan's inputs (B, L, ...)
+    zero-padded to a multiple of it, as ``ssd_chunked_ref`` pads them."""
+    l = ts[0].shape[1]
+    q = min(chunk, l)
+    pad = -l % q
+    return q, [F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) if pad else t for t in ts]
+
+
+def _chunk_cum(dt, a_neg, b, nc, q, h):
+    return torch.cumsum((dt.float() * a_neg).reshape(b, nc, q, h), dim=2)  # (B,C,Q,H)
+
+
+def ssd_states_ref(xb, dt, a_neg, bmat, chunk: int):
+    """The scan's first call on a block of the sequence, plain: (states
+    (B,C,H,N,P) entering each of its C chunks, decay (B,C,H) each chunk's
+    total decay, final (B,H,N,P) the block's final state), all fp32 and from
+    a zero state. With ``ssd_output_ref`` it computes ``ssd_chunked_ref``'s
+    products once each: the chunk states here, C·Bᵀ, G·x and C·S_prev
+    there."""
+    b, l, h, p = xb.shape
+    n = bmat.shape[-1]
+    q, (xb, dt, bmat) = _padded(chunk, xb, dt, bmat)
+    nc = xb.shape[1] // q
+    cum = _chunk_cum(dt, a_neg, b, nc, q, h)
+    xc = xb.reshape(b, nc, q, h, p).float()
+    bc = bmat.reshape(b, nc, q, n).float()
+    w_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,C,Q,H) decay to chunk end
+    s_chunk = torch.einsum("bcsn,bcshp->bchnp", bc, w_end[..., None] * xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,C,H)
+    s = torch.zeros((b, h, n, p), dtype=torch.float32, device=xb.device)
+    s_prev = []
+    for c in range(nc):
+        s_prev.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + s_chunk[:, c]
+    return torch.stack(s_prev, dim=1), chunk_decay, s
+
+
+def ssd_output_ref(xb, dt, a_neg, bmat, cmat, chunk: int, states, decay, final, s_in=None):
+    """The scan's second call, plain: (y (B,L,H,P) in xb's dtype, the final
+    state (B,H,N,P) fp32) of the block, from ``ssd_states_ref``'s results
+    and the block's initial state ``s_in`` (B,H,N,P), or zero where None.
+    ``s_in`` decayed to each chunk's start joins that chunk's entering state
+    before C·S_prev, so it costs no product of its own."""
+    b, l, h, p = xb.shape
+    n = bmat.shape[-1]
+    dtype = xb.dtype
+    q, (xb, dt, bmat, cmat) = _padded(chunk, xb, dt, bmat, cmat)
+    nc = xb.shape[1] // q
+    cum = _chunk_cum(dt, a_neg, b, nc, q, h)
+    xc = xb.reshape(b, nc, q, h, p).float()
+    bc = bmat.reshape(b, nc, q, n).float()
+    cc = cmat.reshape(b, nc, q, n).float()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,C,Q,Q,H) t,s
+    causal = torch.ones((q, q), dtype=torch.bool, device=xb.device).tril()
+    cb = torch.einsum("bctn,bcsn->bcts", cc, bc)
+    y_intra = torch.einsum("bctsh,bcshp->bcthp",
+                           cb[..., None] * torch.where(causal[None, None, :, :, None],
+                                                       torch.exp(seg), 0.0), xc)
+    if s_in is not None:
+        start = torch.cumprod(torch.cat([torch.ones_like(decay[:, :1]), decay[:, :-1]], 1), 1)
+        states = states + start[..., None, None] * s_in[:, None]
+        final = final + decay.prod(1)[..., None, None] * s_in
+    cs = torch.einsum("bctn,bchnp->bcthp", cc, states)  # C_t . S_prev
+    y = (y_intra + torch.exp(cum)[..., None] * cs).to(dtype).reshape(b, nc * q, h, p)
+    return y[:, :l], final
+
+
+def ssd_carry(finals, decays, upto: int):
+    """The state entering block ``upto`` of a sequence cut into blocks, from
+    each block's final state from zero ``finals`` (K,B,H,N,P) and its total
+    decay ``decays`` (K,B,H): S_{k+1} = decay_k S_k + final_k from S_0 = 0.
+    None for block 0."""
+    s = None
+    for j in range(upto):
+        s = finals[j] if s is None else s * decays[j][..., None, None] + finals[j]
+    return s
+
+
+def ssd_states(xb, dt, a_neg, bmat, chunk: int):
+    """The scan's first call on a block (``ssd_states_ref``), on the kernel
+    where ``ssd_chunked`` would take it."""
+    if _use_kernel(xb):
+        from repro_torch.kernels import ops as kops
+        return kops.ssd_states(xb, dt, a_neg, bmat, chunk)
+    return ssd_states_ref(xb, dt, a_neg, bmat, chunk)
+
+
+def ssd_output(xb, dt, a_neg, bmat, cmat, chunk: int, states, decay, final, s_in=None):
+    """The scan's second call on a block (``ssd_output_ref``), on the kernel
+    where ``ssd_chunked`` would take it."""
+    if _use_kernel(xb):
+        from repro_torch.kernels import ops as kops
+        return kops.ssd_output(xb, dt, a_neg, bmat, cmat, chunk, states, decay, final, s_in)
+    return ssd_output_ref(xb, dt, a_neg, bmat, cmat, chunk, states, decay, final, s_in)
+
+
 def apply_ssm(p, cfg, x, return_cache: bool = False):
     """Full-sequence Mamba2 block. x (B,L,D) -> (y (B,L,D), cache_or_state)."""
+    seq = _sequence_region(x, cfg.ssm_chunk)
+    if seq is not None:
+        out, cache = _apply_ssm_split(p, cfg, x, seq)
+        return out, (cache if return_cache else cache["state"])
     b, l, d = x.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv
@@ -253,6 +356,161 @@ def apply_ssm(p, cfg, x, return_cache: bool = False):
                  "conv_c": cm_raw[:, l - (w - 1):, :].clone()}
         return out, cache
     return out, s_final
+
+
+def _sequence_region(x, chunk: int):
+    """The mesh dims over which a prefill's Mamba2 block runs on sequence
+    shards (``_apply_ssm_split``), or None. Where no gradient is tracked and
+    the DTensor ``x`` (B,L,D) splits nothing but its rows (evenly) and its
+    sequence, its sequence is split over every mesh dim of more than one
+    rank that does not split its rows (the residual's own split under "sp";
+    where x is whole there, a local slice), as long as each rank's block is
+    a whole number of chunks. The block then moves its weights (~13 MB at
+    mamba2-370m's widths) and small tensors between those ranks, where the
+    head-split region gathers the residual's sequence and repeats C·Bᵀ on
+    every rank."""
+    from torch.distributed.tensor import DTensor
+
+    if torch.is_grad_enabled() or not isinstance(x, DTensor) or x.ndim != 3:
+        return None
+    mesh = x.device_mesh
+    dims = [p.dim % 3 if p.is_shard() else None for p in x.placements]
+    if not set(dims) <= {None, 0, 1}:
+        return None
+    seq = [i for i, d in enumerate(dims) if d != 0 and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in seq)
+    rows = math.prod(mesh.size(i) for i, d in enumerate(dims) if d == 0)
+    if not seq or x.shape[0] % rows or x.shape[1] % (n * chunk):
+        return None
+    return seq
+
+
+def sequence_layout(x, cfg):
+    """The placements on which a prefill's Mamba2 block over ``x`` runs on
+    sequence shards (``_sequence_region``), or None: its rows' split and
+    the sequence split over the region's mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    seq = _sequence_region(x, cfg.ssm_chunk)
+    if seq is None:
+        return None
+    return tuple(Shard(1) if i in seq else pl if pl.is_shard() else Replicate()
+                 for i, pl in enumerate(x.placements))
+
+
+def _apply_ssm_split(p, cfg, x, seq):
+    """``apply_ssm`` on each rank's rows and block of the sequence (the
+    sequence split over the mesh dims ``seq``), its weights made whole: the
+    block runs ``_ssm_block`` on its local tensors, whose two exchanges are
+    all-gathers over ``seq`` (the conv's last positions, the scan's final
+    state and decay). The output keeps the region's layout; the cache (the whole
+    sequence's, as the unsharded block returns it) splits the state's heads
+    and ``conv_x``'s channels over ``seq`` where they divide evenly."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    n = math.prod(mesh.size(i) for i in seq)
+    rows = [pl if pl.is_shard() and pl.dim % 3 == 0 else Replicate() for pl in x.placements]
+    x = _laid_out(x, [Shard(1) if i in seq else pl for i, pl in enumerate(x.placements)])
+    weights = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in p.items()}
+    block = _ssm_block(weights, cfg, x.to_local(), shard_index(mesh, seq), n)
+    (out, cache), = run_blocks([block], lambda sent: _gather_blocks(sent[0], mesh, seq))
+    out = DTensor.from_local(out, mesh, x.placements, run_check=False, shape=x.shape,
+                             stride=x.stride())
+
+    def laid_out(name, dim=None):
+        t = DTensor.from_local(cache[name], mesh, rows, run_check=False)
+        if dim is None or t.shape[dim] % n:
+            return t
+        return _laid_out(t, [Shard(dim) if i in seq else pl for i, pl in enumerate(rows)])
+
+    return out, {"state": laid_out("state", 1), "conv_x": laid_out("conv_x", 2),
+                 "conv_b": laid_out("conv_b"), "conv_c": laid_out("conv_c")}
+
+
+def _gather_blocks(t, mesh, dims):
+    """Every rank's ``t`` over the mesh dims ``dims``, stacked (K, ...) in
+    the order of their blocks of the sequence (``shard_index``): DTensor's
+    all-gather of ``t`` declared split over ``dims`` along a new dim 0 (the
+    other dims' ranks hold their own rows and gather nothing)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pls = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(t[None].contiguous(), mesh, pls, run_check=False).full_tensor()
+
+
+def run_blocks(blocks, gather):
+    """Drive the block generators (``_ssm_block``) of one sequence in
+    lockstep: at each exchange ``gather`` takes the list of what each sent
+    and returns the stack of all blocks' (K, ...), sent back to each. One
+    generator a rank on a mesh, ``gather`` an all-gather; or every block in
+    one process (``apply_ssm_blocks``). Returns each block's result."""
+    sent = [next(g) for g in blocks]
+    results = [None] * len(blocks)
+    while sent:
+        got = gather(sent)
+        sent = []
+        for i, g in enumerate(blocks):
+            try:
+                sent.append(g.send(got))
+            except StopIteration as stop:
+                results[i] = stop.value
+    return results
+
+
+def apply_ssm_blocks(p, cfg, x, blocks: int):
+    """``apply_ssm`` with cache on plain tensors, computed as a sequence
+    split over ``blocks`` ranks computes it (``_ssm_block`` on each block,
+    the exchanges stacked in this process): (y (B,L,D), cache). The
+    sequence must cut into blocks of whole chunks."""
+    b, l, _ = x.shape
+    if l % (blocks * cfg.ssm_chunk):
+        raise ValueError(f"{l} positions do not cut into {blocks} blocks of whole "
+                         f"{cfg.ssm_chunk}-position chunks")
+    parts = x.chunk(blocks, dim=1)
+    res = run_blocks([_ssm_block(p, cfg, xk, k, blocks) for k, xk in enumerate(parts)],
+                     lambda sent: torch.stack(sent))
+    return torch.cat([y for y, _ in res], dim=1), res[-1][1]
+
+
+def _ssm_block(p, cfg, x, k: int, blocks: int):
+    """The Mamba2 block on block ``k`` of ``blocks`` of the sequence: x
+    (B,L/blocks,D) and the weights ``p`` plain tensors, the weights whole.
+    A generator: it yields what the blocks exchange and receives every
+    block's, stacked (blocks, ...) in sequence order (``run_blocks``):
+    first the conv inputs' last W-1 positions (the next block's halo), then
+    its scan's final state and total decay from a zero state (the states
+    call), from which it takes the state entering it (``ssd_carry``) for
+    the output call. Returns (y (B,L/blocks,D), cache): the whole
+    sequence's cache, as the unsharded block returns it."""
+    b, l, _ = x.shape
+    h, pdim, w, n, di = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv, cfg.ssm_state,
+                         cfg.d_inner)
+    z, xi_raw, bm_raw, cm_raw, dt_raw = (x @ p[name].to(x.dtype)
+                                         for name in ("in_z", "in_x", "in_b", "in_c", "in_dt"))
+    raw = torch.cat([xi_raw, bm_raw, cm_raw], dim=-1)  # one depthwise conv over all three
+    tails = yield raw[:, l - (w - 1):]
+    halo = tails[k - 1] if k else None
+    conv = _causal_conv(raw, torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], 1),
+                        torch.cat([p["conv_bias_x"], p["conv_bias_b"], p["conv_bias_c"]]), halo)
+    conv = F.silu(conv.float()).to(x.dtype)
+    xi, bm, cm = conv.split([di, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,L,H)
+    a_neg = -torch.exp(p["a_log"])
+    xh = xi.reshape(b, l, h, pdim)
+    xb = (xh.float() * dt[..., None]).to(x.dtype)
+    states, decay, final = ssd_states(xb, dt, a_neg, bm, cfg.ssm_chunk)
+    pairs = yield torch.cat([final.reshape(b, h, n * pdim), decay.prod(1)[..., None]], -1)
+    finals, decays = pairs[..., :-1].reshape(blocks, b, h, n, pdim), pairs[..., -1]
+    y, _ = ssd_output(xb, dt, a_neg, bm, cm, cfg.ssm_chunk, states, decay, final,
+                      ssd_carry(finals, decays, k))
+    y = y + (p["d_skip"][:, None] * xh.float()).to(x.dtype)
+    y = _gated_norm(y.reshape(b, l, di), z, p["norm_scale"])
+    out = y @ p["out"].to(x.dtype)
+    last = tails[-1]
+    return out, {"state": ssd_carry(finals, decays, blocks),
+                 "conv_x": last[..., :di].contiguous(), "conv_b": last[..., di:di + n].contiguous(),
+                 "conv_c": last[..., di + n:].contiguous()}
 
 
 def _project(x, w):

@@ -60,7 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, last_position
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -195,8 +195,14 @@ class SSMLayer(_Layer):
     """Pre-norm Mamba2 SSD mixer, then the layer's MLP (none in Mamba2)."""
 
     def forward(self, x, positions, memory=None, prefill=False):
-        y, cache = ssm_lib.apply_ssm(self._w("mixer"), self.cfg, self._norm1(x),
-                                     return_cache=True)
+        # where the block runs on sequence shards (a prefill on a mesh), the
+        # residual is laid out so first (a partial one reduce-scattered) and
+        # its norm keeps the split
+        laid = ssm_lib.sequence_layout(x, self.cfg)
+        if laid is not None and tuple(x.placements) != laid:
+            x = x.redistribute(x.device_mesh, laid)
+        h = L.apply_norm(self._w("norm1"), x, gather=laid is None)
+        y, cache = ssm_lib.apply_ssm(self._w("mixer"), self.cfg, h, return_cache=True)
         x, aux = self._block(x, y, prefill)
         return x, cache, aux
 
@@ -513,7 +519,7 @@ class StackModel(nn.Module):
         for layer in self.layers:
             x, entry, _ = layer(x, positions, memory, prefill=True)
             cache.append(entry)
-        x = L.apply_norm(self._w("final_norm"), x[:, -1:])
+        x = L.apply_norm(self._w("final_norm"), last_position(x))
         return L.unembed(self._w("embed"), x, cfg.logits_softcap, cfg.vocab_size), cache
 
     @torch.no_grad()

@@ -370,19 +370,31 @@ def sharded_serve(rank, world, arch, npz, batch, seq, steps, data, model_par):
     ``make_prefill_step``, its cache grown by ``steps`` slots and laid out
     by ``cache_shardings``, and ``steps`` decode steps of the next tokens
     by ``make_decode_step``. Returns each step's logits, whole, and how many
-    MoE layer calls took the path where a group spans ranks."""
+    MoE layer calls took the path where a group spans ranks, Mamba2 layer
+    calls ran on sequence shards (``ssm._apply_ssm_split``) and decode
+    attention calls split their cache reads over idle ranks
+    (``attention._idle_split``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.dryrun import FSDP_PARAMS
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import build_model, moe
+    from repro_torch.models import attention, build_model, moe, ssm
     from repro_torch.serve import engine
     from repro_torch.train import step as step_lib
 
     spans, spanning = [], moe._spanning
     moe._spanning = lambda *a: spans.append(1) or spanning(*a)
+    seq_split, apply_split = [], ssm._apply_ssm_split
+    ssm._apply_ssm_split = lambda *a: seq_split.append(1) or apply_split(*a)
+    idle, idle_split = [], attention._idle_split
+
+    def counted_idle_split(*a):
+        dims = idle_split(*a)
+        idle.extend(dims[:1])
+        return dims
+    attention._idle_split = counted_idle_split
     cfg, params = _model_and_state(arch, npz)
     mesh = make_host_mesh(data, model_par, device="cpu")
     model = build_model(cfg, device="cpu", sharder=shd.make_sharder(mesh))
@@ -411,7 +423,8 @@ def sharded_serve(rank, world, arch, npz, batch, seq, steps, data, model_par):
         step = laid_out({"tokens": tokens[:, seq + n:seq + n + 1], "pos": pos})
         logits, cache = decode(p, cache, step["tokens"], step["pos"])
         out.append(logits.full_tensor())
-    return {"logits": [t.tolist() for t in out], "spanning": len(spans)}
+    return {"logits": [t.tolist() for t in out], "spanning": len(spans),
+            "seq_split": len(seq_split), "idle_split": len(idle)}
 
 
 def fake_trace_checks(rank, world):

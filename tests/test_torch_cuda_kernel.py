@@ -20,7 +20,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref  # noqa: E402
-from repro_torch.models.ssm import ssd_chunked_ref  # noqa: E402
+from repro_torch.models.ssm import (ssd_carry, ssd_chunked_ref, ssd_output_ref,  # noqa: E402
+                                    ssd_states_ref)
 
 # the reference's kernel tolerances (tests/test_kernels.py)
 KTOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -322,6 +323,73 @@ def test_ssd_model_layout_wrapper_launches_on_card(cuda):
     np.testing.assert_allclose(y.float().cpu().numpy(), yw.float().numpy(),
                                atol=SSD_TOL["bfloat16"], rtol=SSD_TOL["bfloat16"])
     np.testing.assert_allclose(state.cpu().numpy(), sw.numpy(), atol=2e-4, rtol=2e-4)
+
+
+def _split_chain(states_call, output_call, args, cuts, chunk):
+    """y and the final state of the scan over ``args`` cut into sequence
+    blocks at ``cuts``: each block's states call, the carry into it
+    (``ssd_carry``) and its output call from that state."""
+    xb, dt, a_neg, bm, cm = args
+    spans = list(zip(cuts, cuts[1:]))
+    first = [states_call(xb[:, u:v].contiguous(), dt[:, u:v].contiguous(), a_neg,
+                         bm[:, u:v].contiguous(), chunk) for u, v in spans]
+    finals = torch.stack([f for _, _, f in first])
+    decays = torch.stack([d.prod(1) for _, d, _ in first])
+    ys, final = [], None
+    for k, ((u, v), res) in enumerate(zip(spans, first)):
+        y, final = output_call(xb[:, u:v].contiguous(), dt[:, u:v].contiguous(), a_neg,
+                               bm[:, u:v].contiguous(), cm[:, u:v].contiguous(), chunk, *res,
+                               ssd_carry(finals, decays, k))
+        ys.append(y)
+    return torch.cat(ys, 1), final
+
+
+def test_ssd_split_wrappers_refuse_cpu_tensors():
+    args = _ssd_inputs(1, 8, 2, 16, 8)
+    before = ssd.split_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_states_blhp(*args[:4], chunk=4)
+    states, decay, final = ssd_states_ref(*args[:4], 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_output_blhp(*args, 4, states, decay, final, final)
+    assert ssd.split_launches == before
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,cuts", [
+    (2, 2081, 8, 64, 128, 256, (0, 512, 1024, 1536, 2081)),   # mamba2's N, P, chunk
+    (2, 2081, 8, 64, 16, 64, (0, 512, 1024, 1536, 2081)),     # jamba's
+    (1, 300, 5, 32, 32, 64, (0, 128, 300)), (2, 40, 3, 16, 8, 16, (0, 16, 32, 40)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_split_kernel_matches_plain_on_card(cuda, b, l, h, p, n, chunk, cuts, dtype):
+    """The two calls chained over sequence blocks (the last ragged) from a
+    nonzero initial state: against the plain chain, and against the one-call
+    plain scan over the whole sequence."""
+    args = tuple(t.to(cuda) for t in _ssd_inputs(b, l, h, p, n, seed=l + n,
+                                                 dtype=getattr(torch, dtype), slow=True))
+    before = ssd.split_launches, ssd.launches
+    y, final = _split_chain(ssd.ssd_states_blhp, ssd.ssd_output_blhp, args, cuts, chunk)
+    torch.cuda.synchronize()
+    blocks = len(cuts) - 1
+    assert (ssd.split_launches, ssd.launches) == (before[0] + 2 * blocks, before[1])
+    plain = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in args)
+    yp, fp = _split_chain(ssd_states_ref, ssd_output_ref, plain, cuts, chunk)
+    yw, sw = ssd_chunked_ref(*plain, chunk)
+    tol = SSD_TOL[dtype]
+    for want_y, want_s in ((yp, fp), (yw, sw)):
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   want_y.to(y.dtype).float().cpu().numpy(), atol=tol, rtol=tol)
+        np.testing.assert_allclose(final.cpu().numpy(), want_s.cpu().numpy(),
+                                   atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])
+
+
+def test_ssd_output_without_initial_state_equals_the_one_call_kernel(cuda):
+    args = tuple(t.to(cuda) for t in _ssd_inputs(2, 2081, 8, 64, 128, dtype=torch.bfloat16))
+    y1, s1 = ssd.ssd_scan_blhp(*args, 256)
+    res = ssd.ssd_states_blhp(*args[:4], 256)
+    y2, s2 = ssd.ssd_output_blhp(*args, 256, *res)
+    assert s2.data_ptr() == res[2].data_ptr()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 # RMSNorm: the reference's kernel tolerances (y, and dx) for each dtype;

@@ -37,9 +37,19 @@ cells' widths, heads and batch):
   every rank of the sequence split, as torch 2.11's did, the peak and the
   products exceed the reference's.
 
+- mamba2-370m ``prefill_32k``: the SSD scan's C·Bᵀ has no head dim, and
+  the head-split region ran all of it on each of 16 "model" ranks (the
+  ``ssd`` group 1.455x the reference's); a prefill's Mamba2 block now runs
+  on the residual's sequence shards, the scan's state passed between the
+  ranks (``ssm._apply_ssm_split``), and the group equals the reference's;
+- jamba-v0.1-52b ``long_500k``: one row decodes against a 524288-position
+  cache, and every "data" rank read the whole of its "model" rank's block
+  (``attn`` 1.88x the reference's); the reads now split over "data" too
+  (``attention._idle_split``).
+
 ``slow``: every runnable cell of the sweep, both meshes, at full depth
 (minutes and up to ~9 GB of host memory a cell), ``ok``, and within
-``DOT_RTOL`` but for the cells ``OVER`` lists (``ROADMAP.md`` Queue C).
+``DOT_RTOL``.
 """
 
 import json
@@ -58,12 +68,6 @@ from test_torch_dryrun import DOT_RTOL  # noqa: E402
 TOOL = os.path.join(os.path.dirname(SRC), "tools", "dot_table.py")
 CUT_TIMEOUT_S = 600
 FULL_TIMEOUT_S = 3000  # the sweep's own
-# full-size cells whose products stay above DOT_RTOL (the card's host, torch
-# 2.11): the group that carries the excess and its ROADMAP.md Queue C item
-OVER = {("mamba2-370m", "prefill_32k", False): "ssd, C·Bᵀ on every model rank (25)",
-        ("mamba2-370m", "prefill_32k", True): "ssd, C·Bᵀ on every model rank (25)",
-        ("jamba-v0.1-52b", "long_500k", False): "attn and rest on every data rank (26)",
-        ("jamba-v0.1-52b", "long_500k", True): "attn and rest on every data rank (26)"}
 
 
 def both_sides(tmp_path, arch, shape, multi_pod=False, layers=None):
@@ -122,6 +126,20 @@ def test_full_width_decode_cell_traces_within_the_references(tmp_path):
         (port["port_live"], ref["reference_live"])
 
 
+def test_full_width_mamba2_prefill_runs_the_scan_on_sequence_shards(tmp_path):
+    port, ref = both_sides(tmp_path, "mamba2-370m", "prefill_32k", layers=1)
+    _check(port, ref, ("mamba2-370m", "prefill_32k"))
+    got, want = port["port"]["ssd/fwd"], ref["reference"]["ssd/fwd"]
+    assert abs(got - want) <= 0.01 * want, (got, want)
+
+
+def test_full_width_batch_one_decode_splits_its_cache_reads(tmp_path):
+    port, ref = both_sides(tmp_path, "jamba-v0.1-52b", "long_500k", layers=8)
+    _check(port, ref, ("jamba-v0.1-52b", "long_500k"))
+    assert port["port"]["attn/fwd"] <= ref["reference"]["attn/fwd"], \
+        (port["port"], ref["reference"])
+
+
 FULL = [pytest.param(a, s, mp, id=f"{a}-{s}-{'multi' if mp else 'single'}",
                      marks=pytest.mark.slow)
         for a, s, mp, ok, _ in sweep.cells([False, True]) if ok]
@@ -131,6 +149,4 @@ FULL = [pytest.param(a, s, mp, id=f"{a}-{s}-{'multi' if mp else 'single'}",
 def test_full_size_cell_traces_within_the_references_products(arch, shape, multi_pod,
                                                               tmp_path):
     port, ref = both_sides(tmp_path, arch, shape, multi_pod)
-    if (arch, shape, multi_pod) in OVER:
-        return
     _check(port, ref, (arch, shape, multi_pod))

@@ -9,12 +9,16 @@ and 16 fake host devices on the reference's).
   d_model over "data" for compute (``moe.compute_split``);
 - whisper-tiny's untied embedding leaves its output split over d_model,
   which its LayerNorm makes whole first (``layers._norm``), so both decoder
-  layers split their products over "model" as the reference does.
+  layers split their products over "model" as the reference does;
+- mamba2-370m's prefill runs each Mamba2 block on the residual's sequence
+  shards (``models.ssm._apply_ssm_split``): each "model" rank takes the
+  SSD scan's C·Bᵀ of its own chunk alone, where the head-split region ran
+  all of it on every rank (+196,608 a device).
 
 Every product runs at the reference's share, so no offset is written out.
-arctic-480b's, moonshot-v1-16b-a3b's and whisper-tiny's decode cells are
-tier-1 (~10-30 s each); jamba-v0.1-52b's decode and whisper-tiny's prefill
-are ``slow``.
+arctic-480b's, moonshot-v1-16b-a3b's and whisper-tiny's decode cells and
+mamba2-370m's prefill are tier-1 (~10-30 s each); jamba-v0.1-52b's decode
+and whisper-tiny's prefill are ``slow``.
 """
 
 import pytest
@@ -26,7 +30,7 @@ from _dryrun_cells import dot_flops  # noqa: E402
 
 @pytest.mark.parametrize("cell", [
     ("arctic-480b", "sp", "decode"), ("moonshot-v1-16b-a3b", "sp", "decode"),
-    ("whisper-tiny", "sp", "decode"),
+    ("whisper-tiny", "sp", "decode"), ("mamba2-370m", "sp", "prefill"),
     pytest.param(("jamba-v0.1-52b", "sp", "decode"), marks=pytest.mark.slow),
     pytest.param(("whisper-tiny", "sp", "prefill"), marks=pytest.mark.slow),
 ], ids="-".join)

@@ -41,7 +41,7 @@ LOGIT_TOL = 1e-5
 BATCH, SEQ, STEPS = 4, 8, 2
 
 
-def _unsharded_and_reference(cfg, jm, params):
+def _unsharded_and_reference(cfg, jm, params, BATCH=BATCH, SEQ=SEQ):
     """Each step's logits from the port's unsharded model and from the
     reference, on ``serve_inputs``."""
     inputs = serve_inputs(cfg, BATCH, SEQ, STEPS)
@@ -75,24 +75,45 @@ def _unsharded_and_reference(cfg, jm, params):
     return [t.numpy() for t in mine], [np.asarray(t) for t in ref]
 
 
+def _serve(arch, tmp_path, batch=BATCH, seq=SEQ):
+    """(the reduced config, the sharded run's output) after its logits are
+    held to the unsharded port's and the reference's."""
+    cfg = jax_reduced(jax_get_config(arch))
+    jm = jax_build(cfg)
+    params = jm.init(jax.random.key(0))
+    npz = str(tmp_path / "weights.npz")
+    np.savez(npz, **{k.replace("/", "|"): v for k, v in jax_flat(params).items()})
+    mine, ref = _unsharded_and_reference(cfg, jm, params, batch, seq)
+    out = run_world("sharded_serve", 4, tmp_path, timeout=180, arch=arch, npz=npz, batch=batch,
+                    seq=seq, steps=STEPS, data=2, model_par=2)
+    got = [np.asarray(t, np.float32) for t in out["logits"]]
+    assert len(got) == len(mine) == len(ref) == 1 + STEPS
+    for i, (g, m, r) in enumerate(zip(got, mine, ref)):
+        np.testing.assert_allclose(g, m, rtol=LOGIT_TOL, atol=LOGIT_TOL, err_msg=f"step {i}")
+        np.testing.assert_allclose(g, r, rtol=MODEL_TOL, atol=MODEL_TOL, err_msg=f"step {i}")
+    return cfg, out
+
+
 @pytest.mark.parametrize("arch", [
     "moonshot-v1-16b-a3b",
     pytest.param("whisper-tiny", marks=pytest.mark.slow),
     pytest.param("arctic-480b", marks=pytest.mark.slow),
 ])
 def test_sharded_serve_equals_the_unsharded_and_reference(arch, tmp_path):
-    cfg = jax_reduced(jax_get_config(arch))
-    jm = jax_build(cfg)
-    params = jm.init(jax.random.key(0))
-    npz = str(tmp_path / "weights.npz")
-    np.savez(npz, **{k.replace("/", "|"): v for k, v in jax_flat(params).items()})
-    mine, ref = _unsharded_and_reference(cfg, jm, params)
-    out = run_world("sharded_serve", 4, tmp_path, timeout=180, arch=arch, npz=npz, batch=BATCH,
-                    seq=SEQ, steps=STEPS, data=2, model_par=2)
-    got = [np.asarray(t, np.float32) for t in out["logits"]]
-    assert len(got) == len(mine) == len(ref) == 1 + STEPS
-    for i, (g, m, r) in enumerate(zip(got, mine, ref)):
-        np.testing.assert_allclose(g, m, rtol=LOGIT_TOL, atol=LOGIT_TOL, err_msg=f"step {i}")
-        np.testing.assert_allclose(g, r, rtol=MODEL_TOL, atol=MODEL_TOL, err_msg=f"step {i}")
+    cfg, out = _serve(arch, tmp_path)
     moe_layers = sum(mlp.startswith("moe") for _, mlp in cfg.pattern()) * cfg.num_periods
     assert out["spanning"] == moe_layers * (1 + STEPS), out["spanning"]
+
+
+def test_sequence_split_mamba2_prefill_equals_the_unsharded_and_reference(tmp_path):
+    # 32 positions: a block of 16 a "model" rank, one chunk of the reduced config
+    cfg, out = _serve("mamba2-370m", tmp_path, seq=32)
+    assert out["seq_split"] == cfg.num_layers, out
+
+
+def test_batch_one_decode_splits_its_cache_reads_over_data(tmp_path):
+    # a cache of 16 positions: a block of 8 a "model" rank, read in halves by
+    # the two "data" ranks that the one row leaves idle
+    cfg, out = _serve("qwen2-0.5b", tmp_path, batch=1, seq=14)
+    assert out["idle_split"] == cfg.num_layers * STEPS, out
+    assert out["seq_split"] == 0, out

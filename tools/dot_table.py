@@ -38,10 +38,13 @@ the SSD scan's products (``ssd``); the Mamba2 block's projections
   product is backward where its stack trace passes through
   ``autograd.grad``. The MoE products are told apart by their operands'
   dims (the experts' d_ff and 2 d_ff, the capacity at the cell's group
-  size, the expert count); a
+  size, the expert count), a forward one only where its stack passes
+  through ``models/moe.py`` and, where the stack's source lines show it,
+  by its einsum; a
   forward product by the functions on its stack (``dot_attention`` under
-  ``apply_cross_attn`` or not, ``ssd_chunked_ref``, ``apply_ssm`` without
-  it, ``unembed``); a backward product takes the group of the forward
+  ``apply_cross_attn`` or not, the scan's plain calls ``ssd_chunked_ref``,
+  ``ssd_states_ref`` and ``ssd_output_ref``, ``apply_ssm`` without them,
+  ``unembed``); a backward product takes the group of the forward
   products that read one of its operands (a view of it: a product's
   gradients read its operands, transposed), or where that is not one
   group, of those it shares its dims with (a product's gradients multiply
@@ -230,6 +233,7 @@ def _moe_label(cfg, cap, shapes):
 
 
 _FRAME = re.compile(r", in (\w+)$", re.M)
+_MOE_FILE = os.path.join("models", "moe.py")
 
 
 def _stack_label(stack):
@@ -239,13 +243,22 @@ def _stack_label(stack):
         return "cross" if funcs & {"apply_cross_attn", "decode_cross_attn"} else "attn"
     if "decode_self_attn" in funcs and not funcs & {"_project_q", "_project_kv", "_out_proj"}:
         return "attn"  # a decode step's grouped scores and context
-    if "ssd_chunked_ref" in funcs:
+    if funcs & {"ssd_chunked_ref", "ssd_states_ref", "ssd_output_ref"}:
         return "ssd"
     if "apply_ssm" in funcs:
         return "ssm_proj"
     if "unembed" in funcs:
         return "unembed"
     return "rest"
+
+
+def _moe_einsum(stack):
+    """The MoE group of the innermost MoE einsum written on a forward
+    product's stack (its source lines), or None."""
+    found = [(stack.rfind(f'"{e}"'), g) for e, g in EINSUMS.items()
+             if g in ("router", "dispatch", "wi", "wo", "combine")]
+    at, group = max(found)
+    return group if at >= 0 else None
 
 
 def _signature(shapes):
@@ -309,11 +322,17 @@ def products(cfg, graph, tokens=None):
         stack = node.meta.get("stack_trace") or ""
         way = "bwd" if "autograd.grad" in stack else "fwd"
         # a forward product under attention, the SSD scan, the Mamba2 block
-        # or the unembedding is that group whatever its dims (at a batch of
-        # one token every dim is a multiple of the capacity)
+        # or the unembedding is that group whatever its dims, and one outside
+        # the MoE layer is none of its groups (at a batch of one token every
+        # dim is a multiple of the capacity)
         on_stack = _stack_label(stack) if way == "fwd" else None
-        group = on_stack if on_stack not in (None, "rest") else \
-            _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
+        if on_stack == "rest" and _MOE_FILE not in stack:
+            group = on_stack
+        elif on_stack == "rest" and _moe_einsum(stack):
+            group = _moe_einsum(stack)
+        else:
+            group = on_stack if on_stack not in (None, "rest") else \
+                _moe_label(cfg, cap, shapes + [tuple(outs[0].shape)])
         if group == "dispatch/combine":  # the one-hot products, told apart by what they contract
             k = shapes[0][-1]
             if way == "fwd":
