@@ -194,13 +194,25 @@ Needs one CUDA card (built for an H100: the kernels target sm_90a) and
    all-reduce carrying between 1 and ``GRAD_AR_MAX`` times the
    parameters' bf16 gradient bytes (every gradient reduced over "data"
    once; the tied table's two uses one by one);
-18. the port's examples as a user runs them (``examples_phase``), beside
-   phase 15's child after phase 16: ``examples/serve_lm_torch.py`` (the
-   reduced qwen2-0.5b through ``DecodeEngine``: prefill and decode times,
-   4 requests of 17 tokens) and ``examples/train_lm_torch.py --steps 20``
-   (the ~100M-family qwen2 config through the ``Trainer``, the loss
-   improving) as two child processes at once under ``build/examples``,
-   each on this card (its first line names it), within 60 s of wall time.
+18. the port's four examples as a user runs them (``examples_phase``),
+   beside phase 15's child after phase 16: ``examples/serve_lm_torch.py``
+   (the reduced qwen2-0.5b through ``DecodeEngine``: prefill and decode
+   times, 4 requests of 17 tokens), ``examples/train_lm_torch.py --steps
+   20`` (the ~100M-family qwen2 config through the ``Trainer``, the loss
+   improving), ``examples/quickstart_torch.py`` (nine CNN profiles, a fit
+   and a prediction, reduced qwen2-0.5b trained 10 steps) and
+   ``examples/predict_and_schedule_torch.py`` (the paper's application:
+   20 CNN profiles, a fit, 20 jobs scheduled optimally, by the GA and at
+   random, admission, feedback, an online refit published as generation 1
+   and a two-replica fleet serving it) as child processes, each in its own
+   directory under ``build/examples``, each on this card (its first line
+   names it) within its wall bound (``EXAMPLE_WALL_S``).
+   Each child runs its example through ``EXAMPLE_LAUNCHER``, which prints
+   the kernels' launch counters of the whole run and its wall time as one
+   JSON line after the example returns; each count is held equal to the
+   one its config gives (``EXAMPLE_LAUNCHES``), so a silent fall to the
+   plain versions fails the run, and each example's lines are checked
+   (``check_example``).
 
 Phase 11's CNN steps run none of the hand-written kernels (a CNN has no
 attention, scan or RMSNorm; their launches are counted around the zoo corpus
@@ -417,11 +429,59 @@ PHASE10_STEP_S = 0.3548
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train")
 TRAIN_CKPT_DIR = os.path.join(TRAIN_DIR, "ckpt")
 TRAIN_CHILD_TIMEOUT = 600.0
-# phase 18: the port's examples as a user runs them, children on the card
-# beside phase 15's launcher child, both at once, within EXAMPLES_WALL_S
+# phase 18: the port's examples as a user runs them (no --device: the card is
+# the default), children on the card, each in a working directory of its own
+# under EXAMPLES_DIR (they write artifacts/torch/ relative to it), each within
+# its wall bound from its own start (EXAMPLE_WALL_S). All four start in
+# phase 18, beside phase 15's launcher child. Bounds: serve and train 60 s
+# (17.7 s and 19.7 s measured); quickstart and predict_and_schedule twice
+# the longest run measured (50.6 s and 97.9 s), rounded up to 10 s. All
+# measured on an NVIDIA H100 80GB HBM3 at 700.00 W (phase 18 alone, then
+# whole runs).
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "examples")
-EXAMPLES_WALL_S = 60.0
-EXAMPLE_RUNS = {"serve_lm_torch.py": (), "train_lm_torch.py": ("--steps", "20")}
+EXAMPLE_RUNS = {"serve_lm_torch.py": (), "train_lm_torch.py": ("--steps", "20"),
+                "quickstart_torch.py": (), "predict_and_schedule_torch.py": ()}
+EXAMPLE_WALL_S = {"serve_lm_torch.py": 60.0, "train_lm_torch.py": 60.0,
+                  "quickstart_torch.py": 110.0, "predict_and_schedule_torch.py": 200.0}
+# Each example's kernel launches over its whole run, as EXAMPLE_LAUNCHER
+# counts them. serve_lm_torch.py: the reduced qwen2-0.5b (2 layers, each a
+# causal self-attention and an MLP; fp32, head_dim 16) at batch 4, prompt 32:
+# one prefill of 2 flash calls and 2 x 2 + 1 = 5 RMSNorms (rms_norms), then
+# 16 decode steps of 5 RMSNorms each (decode attention runs plain): flash 2,
+# RMSNorm forward 5 + 16 x 5 = 85 (serve_launches). train_lm_torch.py --steps 20: the 8-layer
+# qwen2-100m (remat "none", so no forward recomputes) through the Trainer,
+# whose step pins attention and the scan plain: 8 x 2 + 1 = 17 RMSNorms
+# forward and 17 backward a step (step_launches), x 20 steps = 340 each.
+# quickstart_torch.py: the reduced qwen2-0.5b (remat "none", reduced_config's)
+# through the Trainer, 5 forward and 5 backward a step x 10 steps = 50 each;
+# its nine CNN profiles and the unseen one launch none (a CNN has no
+# attention, scan or RMSNorm). predict_and_schedule_torch.py: none at all:
+# 20 CNN profiles, and queries traced on fake tensors with every kernel
+# pinned plain.
+EXAMPLE_COUNTERS = ("flash_attention", "ssd_scan", "ssd_scan_split", "rmsnorm_fwd",
+                    "rmsnorm_bwd")
+EXAMPLE_LAUNCHES = {
+    "serve_lm_torch.py": dict(flash_attention=2, ssd_scan=0, ssd_scan_split=0,
+                              rmsnorm_fwd=85, rmsnorm_bwd=0),
+    "train_lm_torch.py": dict(flash_attention=0, ssd_scan=0, ssd_scan_split=0,
+                              rmsnorm_fwd=340, rmsnorm_bwd=340),
+    "quickstart_torch.py": dict(flash_attention=0, ssd_scan=0, ssd_scan_split=0,
+                                rmsnorm_fwd=50, rmsnorm_bwd=50),
+    "predict_and_schedule_torch.py": dict.fromkeys(EXAMPLE_COUNTERS, 0),
+}
+# A child's program: the example as its user runs it (its argv, run as
+# __main__; a failure fails the child), then the port's kernel launch
+# counters of the whole run and its wall time as one JSON line, the child's
+# last
+EXAMPLE_LAUNCHER = (
+    "import json, runpy, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.kernels import flash_attention as fa, rmsnorm as rn, ssd_scan as ssd\n"
+    "print(json.dumps({'launches': {'flash_attention': fa.launches, 'ssd_scan': ssd.launches, "
+    "'ssd_scan_split': ssd.split_launches, 'rmsnorm_fwd': rn.fwd_launches, "
+    "'rmsnorm_bwd': rn.bwd_launches}, 'wall_s': time.perf_counter() - t0}))\n")
 # phase 16: benchmarks/bench_scenarios.py's composed scenario at its smoke
 # size (composed_spec(smoke=True), copied: the port imports nothing of
 # benchmarks/), on its fleet of four in-process replicas, replayed as fast as
@@ -1153,8 +1213,8 @@ def rms_norms(cfg) -> int:
     return sum(1 + (mlp != "none") + (mixer == "attn_cross") for mixer, mlp in kinds) + 1
 
 
-def serve_launches(cfg):
-    """Each kernel's launches in a prefill and over the ``STEPS`` decode steps of
+def serve_launches(cfg, steps: int = STEPS):
+    """Each kernel's launches in a prefill and over ``steps`` decode steps of
     ``cfg``: flash in every causal self-attention and the SSD scan in every
     SSM layer, in the prefill only (decode and cross-attention run plain),
     and every RMSNorm in the prefill and in each decode step."""
@@ -1163,7 +1223,7 @@ def serve_launches(cfg):
     prefill = {"flash_attention": sum(m in ("attn", "attn_cross") for m, _ in kinds),
                "ssd_scan": sum(m == "ssm" for m, _ in kinds), "rmsnorm_fwd": norms,
                "rmsnorm_bwd": 0}
-    decode = {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * STEPS,
+    decode = {"flash_attention": 0, "ssd_scan": 0, "rmsnorm_fwd": norms * steps,
               "rmsnorm_bwd": 0}
     return prefill, decode
 
@@ -2533,52 +2593,158 @@ def scenario_phase():
           f"fleet and replay {t_replay:.1f} s")
 
 
+def example_command(name: str, args=()) -> list:
+    """The command of phase 18's child for ``examples/<name>``: the example
+    through ``EXAMPLE_LAUNCHER`` with the user's arguments."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [sys.executable, "-c", EXAMPLE_LAUNCHER, os.path.join(here, "examples", name),
+            *args]
+
+
+def serve_lines(stdout: str, workdir: str) -> None:
+    check("arch=qwen2-0.5b (reduced) batch=4" in stdout
+          and re.search(r"^prefill: [\d.]+ ms, decode: [\d.]+ ms/token$", stdout, re.M)
+          and [len(t.split(",")) for t in re.findall(r"^  request \d: \[(.*)\]$", stdout, re.M)]
+          == [17] * 4, "serve_lm_torch.py's lines")
+
+
+def train_lines(stdout: str, workdir: str) -> None:
+    loss = re.search(r"^loss ([\d.]+) -> ([\d.]+) over 20 steps \(retries=0\)$", stdout, re.M)
+    check(loss is not None and float(loss[2]) < float(loss[1]), "train_lm_torch.py's loss line")
+
+
+def quickstart_lines(stdout: str, workdir: str) -> None:
+    profiles = re.findall(r"^  (lenet5|squeezenet|nin) +b= *(\d+) +[\d.]+ ms +[\d.]+ MiB$",
+                          stdout, re.M)
+    check(sorted(profiles) == sorted((n, str(b)) for n in ("lenet5", "squeezenet", "nin")
+                                     for b in (8, 16, 32)),
+          f"quickstart_torch.py's profile lines: {profiles}")
+    check(re.search(r"^  unseen config: predicted [\d.]+ ms \(measured [\d.]+ ms\), "
+                    r"[\d.]+ MiB \(measured [\d.]+\)$", stdout, re.M) is not None,
+          "quickstart_torch.py's unseen config line")
+    steps = re.findall(r"^  step +(\d+) loss (\S+)$", stdout, re.M)
+    check([s for s, _ in steps] == ["0", "3", "6", "9"]
+          and all(math.isfinite(float(loss)) for _, loss in steps),
+          f"quickstart_torch.py's step lines {steps}, want steps 0, 3, 6, 9 with finite losses")
+    check(stdout.splitlines()[-2:-1] == ["done."], "quickstart_torch.py did not end with done.")
+
+
+PREDICT_HEADS = ("== makespans ==", "== admission control (AbacusServer gateway) ==",
+                 "== streaming admission (AdmissionController) ==",
+                 "== online refit (feedback -> new generation) ==",
+                 "== multi-host fabric (ClusterFrontend, 2 replicas) ==")
+
+
+def predict_lines(stdout: str, workdir: str) -> None:
+    """``predict_and_schedule_torch.py``: 20 profiles, the predictor saved,
+    the five sections, optimal <= GA <= the random mean (the optimum is
+    exhaustive at 20 jobs on 2 machines; GA below the random mean is the
+    reference's ``test_ga_beats_random``), generation 1 published with the
+    windowed time-MRE line, and both fleet replicas at generation 1."""
+    name = "predict_and_schedule_torch.py"
+    check(len(re.findall(r"^  \w+ b=\d+: \d+ ms$", stdout, re.M)) == 20, f"{name}'s profiles")
+    check("predictor saved to artifacts/torch/abacus.json" in stdout
+          and os.path.isfile(os.path.join(workdir, "artifacts", "torch", "abacus.json")),
+          f"{name} saved no artifacts/torch/abacus.json")
+    missing = [h for h in PREDICT_HEADS if h not in stdout.splitlines()]
+    check(not missing, f"{name} printed no {missing}")
+    span = {k: re.search(rf"^  {k} +: +([\d.]+) s", stdout, re.M)
+            for k in ("optimal", "random", "GA")}
+    check(all(span.values()), f"{name}'s makespans")
+    opt, rand, ga = (float(span[k][1]) for k in ("optimal", "random", "GA"))
+    check(opt <= ga <= rand, f"{name}: makespans optimal {opt}, GA {ga}, random mean {rand}; "
+                             "want optimal <= GA <= random")
+    check("no generation published within 60 s" not in stdout
+          and re.search(r"^  generation 1 published \(fit on \d+ records, \d+ observations",
+                        stdout, re.M) is not None, f"{name} published no generation 1")
+    check(re.search(r"^  windowed time-MRE: generation 0 = [\d.]+ -> generation 1 = [\d.]+ ",
+                    stdout, re.M) is not None, f"{name}'s windowed time-MRE line")
+    fleet = re.findall(r"^  \[(r\d)\] .*\(generation (\d+)\)$", stdout, re.M)
+    check(len(fleet) == 2 and all(g == "1" for _, g in fleet)
+          and re.search(r"^  fleet: 2 served across 2 replicas, generations=\[1\]$", stdout,
+                        re.M) is not None,
+          f"{name}'s fleet did not answer at generation 1 on both replicas: {fleet}")
+
+
+EXAMPLE_LINES = {"serve_lm_torch.py": serve_lines, "train_lm_torch.py": train_lines,
+                 "quickstart_torch.py": quickstart_lines,
+                 "predict_and_schedule_torch.py": predict_lines}
+
+
+def check_example(name: str, stdout: str, card: str, workdir: str) -> dict:
+    """Phase 18's checks of one example's output: its first line names
+    ``card``, its lines (``EXAMPLE_LINES``), and its last, the launcher's
+    line, holds counters equal to ``EXAMPLE_LAUNCHES`` and a wall time
+    within ``EXAMPLE_WALL_S``. Returns that line."""
+    lines = stdout.splitlines()
+    check(lines[:1] == [f"device: {card}"], f"{name} ran on {lines[:1]}, not {card}")
+    try:
+        last = json.loads(lines[-1])
+        launches, wall = last["launches"], float(last["wall_s"])
+    except (IndexError, ValueError, KeyError, TypeError):
+        launches = wall = None
+    check(isinstance(launches, dict), f"{name} printed no launch counters last: {lines[-1:]}")
+    EXAMPLE_LINES[name](stdout, workdir)
+    want = EXAMPLE_LAUNCHES[name]
+    check(launches == want, f"{name}'s kernel launches {launches}, want {want}")
+    check(wall < EXAMPLE_WALL_S[name],
+          f"{name} took {wall:.1f} s, past its {EXAMPLE_WALL_S[name]:.0f} s")
+    return last
+
+
+def examples_start() -> dict:
+    """Start each example of ``EXAMPLE_RUNS`` as a child through
+    ``EXAMPLE_LAUNCHER``, in its own directory under ``EXAMPLES_DIR``, its
+    output in files beside it. Returns ``{name: run}``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    runs = {}
+    for name in EXAMPLE_RUNS:
+        workdir = os.path.join(EXAMPLES_DIR, name[:-len(".py")])
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.makedirs(workdir)
+        files = [open(f"{workdir}.{k}", "w+") for k in ("out", "err")]
+        runs[name] = {"dir": workdir, "files": files, "t0": time.perf_counter(),
+                      "proc": subprocess.Popen(example_command(name, EXAMPLE_RUNS[name]),
+                                               cwd=workdir, env=env, stdout=files[0],
+                                               stderr=files[1], text=True)}
+    return runs
+
+
 def examples_phase(torch) -> None:
-    """Phase 18: ``EXAMPLE_RUNS`` as child processes at once, each in
-    ``EXAMPLES_DIR``, within ``EXAMPLES_WALL_S``: each exits 0, names this
-    card on its first line and prints its example's lines."""
+    """Phase 18: the examples of ``EXAMPLE_RUNS`` started together
+    (``examples_start``), then each waited for within its ``EXAMPLE_WALL_S``
+    from its own start: each exits 0 and passes ``check_example``."""
     print("== phase 18: the port's examples on the card, as child processes: "
           + ", ".join(" ".join((k,) + v) for k, v in EXAMPLE_RUNS.items()))
     t0 = time.perf_counter()
-    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
-    os.makedirs(EXAMPLES_DIR)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs = {name: subprocess.Popen([sys.executable, os.path.join(here, "examples", name), *args],
-                                    cwd=EXAMPLES_DIR, env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-             for name, args in EXAMPLE_RUNS.items()}
-    out = {}
+    runs = examples_start()
     try:
-        for name, proc in procs.items():
-            left = max(0.1, EXAMPLES_WALL_S - (time.perf_counter() - t0))
-            out[name] = proc.communicate(timeout=left)
-    except subprocess.TimeoutExpired:
-        check(False, f"phase 18's examples ran past {EXAMPLES_WALL_S:.0f} s")
+        for name, r in runs.items():
+            left = r["t0"] + EXAMPLE_WALL_S[name] - time.perf_counter()
+            try:
+                r["proc"].wait(timeout=max(0.1, left))
+            except subprocess.TimeoutExpired:
+                check(False, f"phase 18's {name} ran past its {EXAMPLE_WALL_S[name]:.0f} s")
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    wall = time.perf_counter() - t0
+        for r in runs.values():
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait()
     card = torch.cuda.get_device_name(0)
-    for name, proc in procs.items():
-        stdout, stderr = out[name]
-        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {stderr[-4000:]}")
-        lines = stdout.splitlines()
-        check(lines[:1] == [f"device: {card}"], f"{name} ran on {lines[:1]}, not {card}")
-        print(f"{name}: " + " | ".join(lines))
-    serve = out["serve_lm_torch.py"][0]
-    check("arch=qwen2-0.5b (reduced) batch=4" in serve
-          and re.search(r"^prefill: [\d.]+ ms, decode: [\d.]+ ms/token$", serve, re.M)
-          and [len(t.split(",")) for t in re.findall(r"^  request \d: \[(.*)\]$", serve, re.M)]
-          == [17] * 4, "serve_lm_torch.py's lines")
-    loss = re.search(r"^loss ([\d.]+) -> ([\d.]+) over 20 steps \(retries=0\)$",
-                     out["train_lm_torch.py"][0], re.M)
-    check(loss is not None and float(loss[2]) < float(loss[1]), "train_lm_torch.py's loss line")
+    for name, r in runs.items():
+        for f in r["files"]:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in r["files"])
+        for f in r["files"]:
+            f.close()
+        check(r["proc"].returncode == 0, f"{name} exited {r['proc'].returncode}: {stderr[-4000:]}")
+        print(f"{name}: " + " | ".join(stdout.splitlines()))
+        last = check_example(name, stdout, card, r["dir"])
+        print(f"{name}: wall {last['wall_s']:.1f} s (bound {EXAMPLE_WALL_S[name]:.0f} s), "
+              f"kernel launches {last['launches']}, as derived")
     shutil.rmtree(EXAMPLES_DIR)
-    print(f"phase 18 wall time {wall:.1f} s")
+    print(f"phase 18 wall time {time.perf_counter() - t0:.1f} s")
 
 
 def new_archs_phase(torch, F, kops, attention_ref, get_config, build_model, all_plain,
