@@ -1,0 +1,8 @@
+"""device_idle.train: the share of the traced stretch (steps after the
+window) in which no operation ran on the card."""
+
+
+def read(ctx):
+    if ctx.kind != "train" or ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
